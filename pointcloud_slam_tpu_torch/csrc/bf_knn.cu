@@ -1,10 +1,15 @@
 // Exact brute-force k-nearest-neighbour search on Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_knn_kernel` of
-// pointcloud_slam_tpu/ops/pallas/bf_knn.py (wrapper `knn`, pallas_call at
-// :115). It computes what that kernel computes — for each query the k
-// database points of least squared distance, ascending — but is not carried
-// over block by block:
+// Replaces the two Pallas TPU kernels of pointcloud_slam_tpu/ops/pallas/bf_knn.py:
+//   * K1 `_knn_kernel` (wrapper `knn`, pallas_call at :115), entry `pcs_bf_knn`;
+//   * K2 `_nn_kernel` (wrapper `nearest_neighbor`, pallas_call at :162), entry
+//     `pcs_bf_nn`: the K = 1 instance of the same kernel. With K = 1 the
+//     insertion loop is empty and what remains is `_nn_kernel`'s running min
+//     and argmin; the strict `<` over tiles walked in ascending index order
+//     keeps the lower index on ties, as `_nn_kernel`'s `tile_min < best` does.
+// It computes what those kernels compute — for each query the k database
+// points of least squared distance, ascending — but is not carried over
+// block by block:
 //
 //   * One query per thread. A block stages database tiles of kTile points
 //     (structure of arrays, f32) in shared memory and every thread walks the
@@ -130,4 +135,13 @@ extern "C" int pcs_bf_knn(const float* q, int n, const float* db, int m, int k,
     case 20: return launch<20>(q, n, db, m, d2, idx, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Exact 1-NN (K2): queries (3, n), database (3, m) as above. Outputs d2 (n,)
+// f32 and idx (n,) int32 — the (1, n) rows of the K = 1 instance, written
+// flat; 3e38 / -1 where the database is empty. Returns a cudaError_t.
+extern "C" int pcs_bf_nn(const float* q, int n, const float* db, int m,
+                         float* d2, int* idx, void* stream) {
+  if (n <= 0) return 0;
+  return launch<1>(q, n, db, m, d2, idx, static_cast<cudaStream_t>(stream));
 }

@@ -23,7 +23,7 @@ def make_frame(
     n_points: int,
     n_imu: int,
     prev_imu_t: Optional[float] = None,
-    device="cpu",
+    device="cuda",
 ) -> LIOFrame:
     """Pad/truncate a raw frame to the static (n_points, n_imu) shapes."""
     P = len(pts)

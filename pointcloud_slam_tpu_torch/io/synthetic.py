@@ -56,6 +56,23 @@ def make_scan_from_world(world: np.ndarray, sensor_pos: np.ndarray, max_range: f
     return vis.astype(np.float32)
 
 
+def random_pose(seed: int = 0, rot_scale: float = 0.1, trans_scale: float = 0.5):
+    """Small random SE(3) perturbation as (R, t) numpy pair."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=3)
+    w = w / np.linalg.norm(w) * rng.uniform(0, rot_scale)
+    t = rng.normal(size=3)
+    t = t / np.linalg.norm(t) * rng.uniform(0, trans_scale)
+    theta = np.linalg.norm(w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    if theta < 1e-12:
+        R = np.eye(3)
+    else:
+        K = K / theta
+        R = np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * K @ K
+    return R.astype(np.float32), t.astype(np.float32)
+
+
 def make_imu_trajectory(
     n_frames: int,
     imu_per_frame: int = 20,
@@ -111,7 +128,7 @@ def make_imu_trajectory(
     }
 
 
-def simulate_lio_sequence(n_frames=40, n_pts=3000, imu_per_frame=20, frame_dt=0.1, seed=0, device="cpu"):
+def simulate_lio_sequence(n_frames=40, n_pts=3000, imu_per_frame=20, frame_dt=0.1, seed=0, device="cuda"):
     """Synthetic world + trajectory + exact IMU -> (world, traj, [(frame, gt_pos, gt_R)]).
 
     Frame f applies IMU samples i0..i1-1 stamped at their interval ENDS; the

@@ -99,7 +99,8 @@ class LIOOutput(NamedTuple):
     P_diag: torch.Tensor     # (23,) covariance diagonal (status channel)
 
 
-def create_state(cfg: LIOConfig, dtype=torch.float32, device=None) -> LIOState:
+def create_state(cfg: LIOConfig, dtype=torch.float32, device="cuda") -> LIOState:
+    """A fresh filter state and map, on the GPU unless `device` says otherwise."""
     x0 = st.identity(dtype, cfg.gravity, device=device)
     ext_R = torch.tensor(cfg.extrinsic_R, dtype=dtype).reshape(3, 3).to(device)
     ext_t = torch.tensor(cfg.extrinsic_T, dtype=dtype).to(device)
@@ -287,7 +288,7 @@ def lio_step(cfg: LIOConfig, s: LIOState, frame: LIOFrame):
 lio_step.host_syncs = 0
 
 
-def reset(cfg: LIOConfig, dtype=torch.float32, device=None) -> LIOState:
+def reset(cfg: LIOConfig, dtype=torch.float32, device="cuda") -> LIOState:
     """Full re-initialization (reference `jueying_lio/reset` topic handler):
     fresh filter, fresh map, IMU re-init."""
     return create_state(cfg, dtype, device=device)

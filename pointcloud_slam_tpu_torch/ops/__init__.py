@@ -1,6 +1,7 @@
-"""Core data-structure ops: voxel-hash map, downsampling, exact k-NN (K1)."""
+"""Core data-structure ops: voxel-hash map, Gaussian voxel map,
+downsampling, exact k-NN and 1-NN (kernels K1, K2)."""
 
-from . import bf_knn
+from . import bf_knn, gaussian_grid
 from .downsample import compact, voxel_downsample, voxel_downsample_compact
 from .voxel_grid import (
     GridConfig, VoxelHashMap, create, insert, knn, lookup, num_voxels,
@@ -9,6 +10,7 @@ from .voxel_grid import (
 
 __all__ = [
     "bf_knn",
+    "gaussian_grid",
     "GridConfig",
     "VoxelHashMap",
     "create",

@@ -63,5 +63,7 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pcs_bf_knn.argtypes = [p, i, p, i, i, p, p, p]
     lib.pcs_bf_knn.restype = i
+    lib.pcs_bf_nn.argtypes = [p, i, p, i, p, p, p]
+    lib.pcs_bf_nn.restype = i
     lib.build_seconds, lib.build_log = seconds, log
     return lib

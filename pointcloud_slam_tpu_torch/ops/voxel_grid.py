@@ -63,7 +63,8 @@ class VoxelHashMap(NamedTuple):
     counter: torch.Tensor   # int32 () insert-epoch counter
 
 
-def create(config: GridConfig, dtype=torch.float32, device=None) -> VoxelHashMap:
+def create(config: GridConfig, dtype=torch.float32, device="cuda") -> VoxelHashMap:
+    """An empty map, on the GPU unless `device` says otherwise."""
     C, K = config.capacity, config.pts_per_voxel
     return VoxelHashMap(
         keys=torch.zeros((3, C), dtype=torch.int32, device=device),
@@ -193,7 +194,8 @@ def _claim_round(config: GridConfig, fp, npts, stamp, counter, h0, fpq, remainin
     newc = ok & ~has_match
     tgt_new = torch.where(newc, s, C)
     fp = _scatter_drop(fp, tgt_new, fpq, C)
-    npts = _scatter_drop(npts, tgt_new, 0, C)
+    if npts is not None:
+        npts = _scatter_drop(npts, tgt_new, 0, C)
     stamp = _scatter_drop(stamp, torch.where(ok, s, C), counter.expand(s.shape), C)
     won = ok & (fp[s] == fpq)                           # verify re-gather
     slot = torch.where(won, s, slot)
@@ -201,8 +203,27 @@ def _claim_round(config: GridConfig, fp, npts, stamp, counter, h0, fpq, remainin
     return fp, npts, stamp, remaining, slot
 
 
-def insert(config: GridConfig, grid: VoxelHashMap, points: torch.Tensor, mask: torch.Tensor):
-    """Insert masked points. points (3, N), mask (N,) bool. Returns the new map.
+def _claim_loop(config: GridConfig, fp, stamp, counter, cx, cy, cz, mask, npts=None):
+    """Run `config.claim_rounds` claim rounds. Returns (fp, npts, stamp, slot)
+    with slot == capacity for unresolved or unmasked points. `npts` (per-voxel
+    point count, reset to 0 on a fresh claim) is optional: the Gaussian grid
+    accumulates moments instead and passes None."""
+    C = config.capacity
+    h0 = _hash3(cx, cy, cz, C)
+    fpq = _fingerprint(cx, cy, cz)
+    remaining = mask
+    slot = torch.full(cx.shape, C, dtype=torch.int64, device=cx.device)
+    for _ in range(config.claim_rounds):
+        fp, npts, stamp, remaining, slot = _claim_round(config, fp, npts, stamp, counter, h0, fpq, remaining, slot)
+    return fp, npts, stamp, slot
+
+
+def insert(config: GridConfig, grid: VoxelHashMap, points: torch.Tensor, mask: torch.Tensor,
+           return_indices: bool = False):
+    """Insert masked points. points (3, N), mask (N,) bool. Returns the new map,
+    and with `return_indices` also the flat (block_row * capacity + slot) write
+    index of each point, -1 where it was dropped (unbaked maps only), so that
+    callers can scatter parallel per-point attribute arrays.
 
     Claiming runs `claim_rounds` rounds so same-batch hash collisions between
     different voxels resolve. Points in a full per-voxel block are dropped, and
@@ -211,6 +232,8 @@ def insert(config: GridConfig, grid: VoxelHashMap, points: torch.Tensor, mask: t
     C, K = config.capacity, config.pts_per_voxel
     coords = point_to_voxel(points, config.resolution)
     if config.baked:
+        if return_indices:
+            raise ValueError("return_indices is not supported for baked grids")
         # stencil baked into the map: store the point under every voxel whose
         # (mirrored) stencil contains it, so knn() reads one voxel per query
         offs = _stencil_tensor(config.nearby, coords.device)  # (3, S)
@@ -221,13 +244,7 @@ def insert(config: GridConfig, grid: VoxelHashMap, points: torch.Tensor, mask: t
     N = points.shape[1]
     cx, cy, cz = coords[0], coords[1], coords[2]
     counter = grid.counter + 1  # fresh stamp for this batch
-    h0 = _hash3(cx, cy, cz, C)
-    fpq = _fingerprint(cx, cy, cz)
-    fp, npts, stamp = grid.fp, grid.npts, grid.stamp
-    remaining = mask
-    slot = torch.full((N,), C, dtype=torch.int64, device=points.device)
-    for _ in range(config.claim_rounds):
-        fp, npts, stamp, remaining, slot = _claim_round(config, fp, npts, stamp, counter, h0, fpq, remaining, slot)
+    fp, npts, stamp, slot = _claim_loop(config, grid.fp, grid.stamp, counter, cx, cy, cz, mask, npts=grid.npts)
 
     ok = mask & (slot < C)
     # exact keys + occupancy written once at the settled slots
@@ -254,7 +271,10 @@ def insert(config: GridConfig, grid: VoxelHashMap, points: torch.Tensor, mask: t
     adds = torch.zeros(C + 1, dtype=torch.int32, device=points.device)
     adds.index_add_(0, torch.where(fits, slot, C), torch.ones(N, dtype=torch.int32, device=points.device))
     npts = npts + adds[:C]
-    return VoxelHashMap(keys, fp, occupied, pts, npts, stamp, counter)
+    new_grid = VoxelHashMap(keys, fp, occupied, pts, npts, stamp, counter)
+    if return_indices:
+        return new_grid, torch.where(fits, flat, -1)
+    return new_grid
 
 
 def knn(config: GridConfig, grid: VoxelHashMap, queries: torch.Tensor, k: int = 5, max_range: float = 5.0,

@@ -55,7 +55,7 @@ def _jax_args(a):
 
 def _torch_args(a):
     x, P, *rest = a
-    return (convert.nav_state_from_numpy(x), torch.from_numpy(np.array(P)), teskf.process_noise_cov(),
+    return (convert.nav_state_from_numpy(x, device="cpu"), torch.from_numpy(np.array(P)), teskf.process_noise_cov(),
             *(torch.from_numpy(np.array(v)) for v in rest))
 
 
@@ -69,7 +69,7 @@ def test_propagate_matches_jax(rng, n_masked):
     valid = np.concatenate([[True], a[6]])
     for name, jfn in (("parallel", _j_propagate), ("sequential", _j_propagate_sequential)):
         xj, Pj, tj = jfn(*_jax_args(a))
-        dx = tst.boxminus(xt, convert.nav_state_from_numpy(_np(xj)))
+        dx = tst.boxminus(xt, convert.nav_state_from_numpy(_np(xj), device="cpu"))
         np.testing.assert_allclose(dx.numpy(), 0.0, atol=2e-4, err_msg=name)
         np.testing.assert_allclose(Pt.numpy(), np.asarray(Pj), atol=5e-4, err_msg=name)
         for field in tj._fields:
@@ -78,7 +78,7 @@ def test_propagate_matches_jax(rng, n_masked):
     # the port's own sequential oracle against the JAX one
     xs, Ps, _ = timu.propagate_sequential(*_torch_args(a))
     xj, Pj, _ = _j_propagate_sequential(*_jax_args(a))
-    np.testing.assert_allclose(tst.boxminus(xs, convert.nav_state_from_numpy(_np(xj))).numpy(), 0.0, atol=2e-4)
+    np.testing.assert_allclose(tst.boxminus(xs, convert.nav_state_from_numpy(_np(xj), device="cpu")).numpy(), 0.0, atol=2e-4)
     np.testing.assert_allclose(Ps.numpy(), np.asarray(Pj), atol=5e-4)
 
 
@@ -93,7 +93,7 @@ def test_undistort_matches_jax(rng):
     oj = jimu.undistort(jnp.asarray(pts), jnp.asarray(t_offs), jnp.asarray(mask), tj, xj)
     tt = timu.PoseTable(*(torch.from_numpy(np.array(v)) for v in _np(tj)))
     ot = timu.undistort(torch.from_numpy(pts), torch.from_numpy(t_offs), torch.from_numpy(mask), tt,
-                        convert.nav_state_from_numpy(_np(xj)))
+                        convert.nav_state_from_numpy(_np(xj), device="cpu"))
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-4)
 
 
@@ -153,12 +153,13 @@ def test_slice_tracks_like_jax(jax_run):
     assert final < 0.25 and mean < 0.2, (final, mean)
     step_err = []
     for k, (st_np, fr_np) in enumerate(zip(jax_run["states"], jax_run["frames"])):
-        _, out = tlio.lio_step(tcfg, convert.lio_state_from_numpy(st_np), convert.frame_from_numpy(fr_np))
+        _, out = tlio.lio_step(tcfg, convert.lio_state_from_numpy(st_np, device="cpu"),
+                               convert.frame_from_numpy(fr_np, device="cpu"))
         step_err.append(np.abs(out.pos.numpy() - jax_run["pos"][k]).max())
     assert max(step_err) < 0.01, np.round(step_err, 4)
 
-    _, _, frames = tsyn.simulate_lio_sequence(n_frames=N_FRAMES, n_pts=N_PTS)
-    s = tlio.create_state(tcfg)
+    _, _, frames = tsyn.simulate_lio_sequence(n_frames=N_FRAMES, n_pts=N_PTS, device="cpu")
+    s = tlio.create_state(tcfg, device="cpu")
     pos = []
     for fr, _, _ in frames:
         s, out = tlio.lio_step(tcfg, s, fr)
@@ -197,7 +198,7 @@ def test_update_iterated_matches_jax(rng, research):
     convergence flag back once per iteration after the first."""
     a = _imu_inputs(rng, 20)
     xj, Pj, _ = _j_propagate(*_jax_args(a))
-    xt, Pt = convert.nav_state_from_numpy(_np(xj)), torch.from_numpy(np.array(Pj))
+    xt, Pt = convert.nav_state_from_numpy(_np(xj), device="cpu"), torch.from_numpy(np.array(Pj))
     n = 300
     pb = rng.uniform(-8, 8, size=(3, n)).astype(np.float32)
     nrm = rng.normal(size=(3, n))
@@ -210,7 +211,7 @@ def test_update_iterated_matches_jax(rng, research):
                                research=research)
     ut = teskf.update_iterated(xt, Pt, _plane_obs(torch, *map(torch.from_numpy, (pb, nrm, off))), 0.001, 4, 0.001,
                                research=research)
-    dx = tst.boxminus(ut.x, convert.nav_state_from_numpy(_np(uj.x)))
+    dx = tst.boxminus(ut.x, convert.nav_state_from_numpy(_np(uj.x), device="cpu"))
     np.testing.assert_allclose(dx.numpy(), 0.0, atol=1e-4)
     np.testing.assert_allclose(ut.P.numpy(), np.asarray(uj.P), atol=1e-5)
     assert bool(ut.converged) == bool(uj.converged)
@@ -235,7 +236,7 @@ def test_create_state_and_reset_match_jax():
     """A fresh state has the JAX package's leaves, shapes and dtypes."""
     jcfg, tcfg = _cfgs(extrinsic_T=(0.1, -0.2, 0.3))
     sj = _np(jlio.create_state(jcfg))
-    st_ = convert.to_numpy(tlio.reset(tcfg))
+    st_ = convert.to_numpy(tlio.reset(tcfg, device="cpu"))
     for a, b in zip(jax.tree.leaves(sj), jax.tree.leaves(st_)):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)

@@ -55,7 +55,7 @@ def test_knn_on_carried_grid(rng, cfg_kw, k=5):
     cfg, g = _jax_grid(cfg_kw, _cloud(rng, 1500))
     q = _cloud(rng, NQ, -4.5, 4.5)
     nj, dj, cj, ij = jops.knn(cfg, g, jnp.asarray(q), k=k, max_range=1.0)
-    tg = convert.grid_from_numpy(jax.tree.map(np.asarray, g))
+    tg = convert.grid_from_numpy(jax.tree.map(np.asarray, g), device="cpu")
     nt, dt, ct, it = tops.knn(tops.GridConfig(**cfg_kw), tg, torch.from_numpy(q), k=k, max_range=1.0)
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
     assert int(ct.min()) < k < int(ct.max()) + 1  # both partial and full neighbour lists occur
@@ -79,7 +79,7 @@ def test_insert_matches_through_knn(rng, cfg_kw):
     stored point multisets are equal (per-voxel overflow drops follow batch
     order on both sides) and k-NN answers on fresh queries agree."""
     jcfg, tcfg = jops.GridConfig(**cfg_kw), tops.GridConfig(**cfg_kw)
-    jg, tg = jops.create(jcfg), tops.create(tcfg)
+    jg, tg = jops.create(jcfg), tops.create(tcfg, device="cpu")
     for b in range(3):
         pts = _cloud(rng, 700)
         pts[:, :50] = pts[:, 50:51] + rng.uniform(0, 0.05, size=(3, 50))  # one crowded voxel: overflow drops
@@ -100,7 +100,7 @@ def test_insert_matches_through_knn(rng, cfg_kw):
 def test_lookup_and_counts(rng):
     pts = _cloud(rng, 600)
     cfg = tops.GridConfig(**dict(UNBAKED, pts_per_voxel=8))
-    g = tops.insert(cfg, tops.create(cfg), torch.from_numpy(pts), torch.ones(600, dtype=torch.bool))
+    g = tops.insert(cfg, tops.create(cfg, device="cpu"), torch.from_numpy(pts), torch.ones(600, dtype=torch.bool))
     coords = tops.point_to_voxel(torch.from_numpy(pts), cfg.resolution)
     slots = tops.lookup(cfg, g, coords)
     assert bool((slots >= 0).all())
