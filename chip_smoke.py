@@ -16,7 +16,10 @@ kernel on them against its plain PyTorch version. Phases:
      read after it: LIO (tuned config, then the reference-semantics config),
      exact covariances of the final map; then the torch mapping app
   4. K1 against its plain version at the map's size, k=20, and the map's
-     covariances against the same function over the plain k-NN
+     covariances against the same function over the plain k-NN; K1 with a
+     scan's worth of queries (6,144) over the map at k=5 and k=20; a sweep
+     of k (2 .. 32, instances and the k between them) at a ragged shape;
+     exact ties across the kernel's database splits, in K1 and K2
   5. kernel K2 (exact 1-NN): its path is its public entry point (the JAX
      package has no other caller either), one call on a 20,000-point frame
      against another with the count reset before it; then K2 against its
@@ -31,6 +34,9 @@ kernel on them against its plain PyTorch version. Phases:
      version on both clouds at k=8 and the covariances of both against the
      plain k-NN's; then apps/align_bench_torch.py
 
+Every timed K1 / K2 shape prints what the wrapper's plan ran it with: the
+instance (list length), R (queries per thread, always 1) and S (database
+splits).
 Each phase prints one line; the kernels' JSON line and the card's
 nvidia-smi line come before the last line, which is the result object.
 Any failed check raises, so the script exits non-zero. Without a CUDA
@@ -79,11 +85,29 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def cuda_ms_back_to_back(fn, reps=100):
+    """Mean time of one call among `reps` queued one behind the other (CUDA
+    events around them all): the device's time, without the host's time to
+    prepare a call on an idle card that `cuda_ms` includes."""
+    import torch
+
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def compare_knn(bf_knn, q, db, k):
-    """Kernel vs plain version on the same card tensors. Returns (max |d2 err|,
-    kernel ms, plain ms, queries clear of near-ties, ms of torch.cdist +
-    torch.topk); raises when a check fails. No single PyTorch call computes
-    a k-NN: cdist + topk, two calls, is timed as context only."""
+    """Kernel vs plain version on the same card tensors. Returns the phase
+    fields: max |d2 err|, kernel ms (one call at a time, and back to back),
+    plain ms, ms of torch.cdist + torch.topk, the bound, queries clear of
+    near-ties, and the plan the wrapper ran; raises when a check fails. No
+    single PyTorch call computes a k-NN: cdist + topk, two calls, is timed
+    as context only."""
     import torch
 
     d2, idx = bf_knn.knn(q, db, k=k)
@@ -96,10 +120,78 @@ def compare_knn(bf_knn, q, db, k):
     clear = (pd2[k] - pd2[k - 1]) > 1e-6 * pd2[k]
     same = (torch.sort(idx, dim=0).values == torch.sort(pidx[:k], dim=0).values).all(dim=0)
     check(bool(same[clear].all()), f"k={k}: {int((~same & clear).sum())} index sets differ away from ties")
-    ms = cuda_ms(lambda: bf_knn.knn(q, db, k=k))
-    plain_ms = cuda_ms(lambda: bf_knn.knn_plain(q, db, k=k))
-    ctx_ms = cuda_ms(lambda: torch.topk(torch.cdist(q.T, db.T), k, dim=1, largest=False))
-    return float(err.max()), ms, plain_ms, int(clear.sum()), ctx_ms
+    return dict(max_abs_err=float(err.max()), ms=cuda_ms(lambda: bf_knn.knn(q, db, k=k)),
+                ms_back_to_back=cuda_ms_back_to_back(lambda: bf_knn.knn(q, db, k=k)),
+                plain_ms=cuda_ms(lambda: bf_knn.knn_plain(q, db, k=k)),
+                cdist_topk_ms=cuda_ms(lambda: torch.topk(torch.cdist(q.T, db.T), k, dim=1, largest=False)),
+                bound_ms=knn_bound_ms(q.shape[1], db.shape[1], k)[0], queries_clear_of_ties=int(clear.sum()),
+                **plan_fields(bf_knn, q, db, k))
+
+
+def plan_fields(bf_knn, q, db, k):
+    """What the wrapper runs the kernel with at this shape, for the phase line."""
+    instance, splits = bf_knn.plan(q.shape[1], db.shape[1], k)
+    return dict(instance=instance, R=1, S=splits)
+
+
+def sweep_k(bf_knn, q, db, ks):
+    """K1 against its plain version for every k of `ks` (d2 at rtol 1e-5 /
+    atol 1e-6, index sets equal away from near-ties, rows ascending); a k
+    above MAX_K must raise. Returns {k: max |d2 err|}; raises on a mismatch."""
+    import torch
+
+    pd2, pidx = bf_knn.knn_plain(q, db, k=max(ks) + 1)
+    errs = {}
+    for k in ks:
+        d2, idx = bf_knn.knn(q, db, k=k)
+        torch.cuda.synchronize()
+        check(d2.shape == (k, q.shape[1]) and idx.dtype == torch.int32, f"k={k}: output shape or type")
+        check(bool((d2[1:] >= d2[:-1]).all()), f"k={k}: kernel d2 rows not ascending")
+        check(bool(torch.allclose(d2, pd2[:k], rtol=1e-5, atol=1e-6)), f"k={k}: d2 differ from the plain version")
+        clear = (pd2[k] - pd2[k - 1]) > 1e-6 * pd2[k]
+        same = (torch.sort(idx, dim=0).values == torch.sort(pidx[:k], dim=0).values).all(dim=0)
+        check(bool(same[clear].all()), f"k={k}: {int((~same & clear).sum())} index sets differ away from ties")
+        errs[k] = float((d2 - pd2[:k]).abs().max())
+    try:
+        bf_knn.knn(q, db, k=bf_knn.MAX_K + 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"k={bf_knn.MAX_K + 1} did not raise on the card")
+    return errs
+
+
+def check_split_ties(bf_knn, cloud, k):
+    """Exact ties across the kernel's database splits: 100 points of `cloud`
+    are copied into the middle and the last third of the database, which is
+    then its own query set. Each copy sees the three at distance 0 and must
+    list them in index order (K1), and K2 must return the first. Returns the
+    number of splits the plan used; raises on a wrong order."""
+    import torch
+
+    db = cloud.clone()
+    m = db.shape[1]
+    first = torch.arange(100, device=db.device) * 7
+    mid, last = m // 2 + first, m - 1 - torch.arange(100, device=db.device) * 5
+    db[:, mid] = db[:, first]
+    db[:, last] = db[:, first]
+    splits = bf_knn.plan(m, m, k)[1]
+    chunk = -(-m // splits)
+    ranges = [at // chunk for at in (first, mid, last)]
+    check(int(ranges[0].max()) < int(ranges[1].min()) and int(ranges[1].max()) < int(ranges[2].min()),
+          f"the tie case does not straddle the splits (S={splits})")
+    d2, idx = bf_knn.knn(db, db, k=k)
+    nd2, nidx = bf_knn.nearest_neighbor(db, db)
+    torch.cuda.synchronize()
+    want = torch.stack([first, mid, last]).to(torch.int32)
+    for at in (first, mid, last):
+        check(bool((idx[:3, at] == want).all()), "K1: equal distances across splits are not in index order")
+        check(bool((d2[:3, at] == 0).all()), "K1: a copy is not at distance 0")
+        check(bool((nidx[at] == want[0]).all()) and bool((nd2[at] == 0).all()),
+              "K2: a tie across splits did not keep the lower index")
+    pd2, pidx = bf_knn.knn_plain(db, db, k=k)
+    check(bool((idx[:, first] == pidx[:, first]).all()), "K1: tie queries differ from the plain version")
+    return splits, bf_knn.plan(m, m, 1)[1]
 
 
 def compare_cov(bf_knn, vgicp, pts, mask, cov, k):
@@ -432,10 +524,8 @@ def main():
     # ---- 2. K1 against its plain version at N = M = 20,000, k = 8 ----
     frames, gt = build_frames(dev, N_FRAMES)
     cloud = frames[10].pts.contiguous()
-    err20k, ms20k, plain20k, clear20k, ctx20k = compare_knn(bf_knn, cloud, cloud, 8)
-    phase(2, "K1 vs plain (N=M=20000, k=8)", max_abs_err=err20k, ms=ms20k, plain_ms=plain20k, cdist_topk_ms=ctx20k,
-          bound_ms=knn_bound_ms(cloud.shape[1], cloud.shape[1], 8)[0], queries_clear_of_ties=clear20k,
-          launches=bf_knn.knn.launches)
+    k1_20k = compare_knn(bf_knn, cloud, cloud, 8)
+    phase(2, "K1 vs plain (N=M=20000, k=8)", launches=bf_knn.knn.launches, **k1_20k)
 
     # ---- 3. the main path: launches counted from here ----
     cfg = lio.LIOConfig(
@@ -469,11 +559,19 @@ def main():
     phase(3, "mapping app", rc=app.returncode, out=app.stdout.strip().splitlines()[0])
 
     # ---- 4. K1 at the map's size, and the covariances it feeds ----
-    errmap, msmap, plainmap, clearmap, ctxmap = compare_knn(bf_knn, pts, pts, 20)
+    k1_map = compare_knn(bf_knn, pts, pts, 20)
     cov_err = compare_cov(bf_knn, vgicp, pts, mask, cov, 20)
-    phase(4, "K1 vs plain (map, k=20) + covariances", n=int(pts.shape[1]), max_abs_err=errmap, ms=msmap,
-          plain_ms=plainmap, cdist_topk_ms=ctxmap, bound_ms=knn_bound_ms(pts.shape[1], pts.shape[1], 20)[0],
-          queries_clear_of_ties=clearmap, cov_max_abs_err=cov_err)
+    phase(4, "K1 vs plain (map, k=20) + covariances", n=int(pts.shape[1]), cov_max_abs_err=cov_err, **k1_map)
+    # a scan's worth of queries over the map: few query blocks, so the plan splits the database
+    scan = pts[:, :6144].contiguous()
+    scan_fields = {f"k{k}": compare_knn(bf_knn, scan, pts, k) for k in (5, 20)}
+    phase(4, "K1 vs plain (6144 queries over the map)", n=int(scan.shape[1]), m=int(pts.shape[1]), **scan_fields)
+    ragged_q, ragged_db = frames[11].pts[:, :3001].contiguous(), cloud
+    sweep = sweep_k(bf_knn, ragged_q, ragged_db, (2, 3, 4, 7, 9, 16, 21, 32))
+    phase(4, "K1 sweep of k (3001 x 20000)", max_abs_err=sweep, refused_above=bf_knn.MAX_K,
+          plans={k: plan_fields(bf_knn, ragged_q, ragged_db, k) for k in sweep})
+    tie_splits = check_split_ties(bf_knn, cloud, 8)
+    phase(4, "ties across splits (K1 k=8, K2)", S_k1=tie_splits[0], S_k2=tie_splits[1], copies=300)
 
     # ---- 5. K2 (exact 1-NN): its public entry point, then against its plain version ----
     q, db = frames[11].pts.contiguous(), frames[10].pts.contiguous()
@@ -489,11 +587,13 @@ def main():
     clear = (d2k[1] - d2k[0]) > 1e-6 * d2k[1]
     check(bool((nidx == pidx)[clear].all()), f"K2: {int(((nidx != pidx) & clear).sum())} indices differ away from ties")
     nn_ms = cuda_ms(lambda: bf_knn.nearest_neighbor(q, db))
+    nn_b2b_ms = cuda_ms_back_to_back(lambda: bf_knn.nearest_neighbor(q, db))
     nn_plain_ms = cuda_ms(lambda: bf_knn.nearest_neighbor_plain(q, db))
     nn_ctx_ms = cuda_ms(lambda: torch.cdist(q.T, db.T).min(dim=1))   # two calls: context only
     nn_bound, nn_bound_by = knn_bound_ms(q.shape[1], db.shape[1], 1)
-    phase(5, "K2 vs plain (N=M=20000)", max_abs_err=nn_err, ms=nn_ms, plain_ms=nn_plain_ms, bound_ms=nn_bound,
-          cdist_min_ms=nn_ctx_ms, queries_clear_of_ties=int(clear.sum()), launches=launches["nearest_neighbor"])
+    phase(5, "K2 vs plain (N=M=20000)", max_abs_err=nn_err, ms=nn_ms, ms_back_to_back=nn_b2b_ms, plain_ms=nn_plain_ms,
+          bound_ms=nn_bound, cdist_min_ms=nn_ctx_ms, queries_clear_of_ties=int(clear.sum()),
+          launches=launches["nearest_neighbor"], **plan_fields(bf_knn, q, db, 1))
 
     # ---- 6. point-to-plane ICP at bench.py config 1's full shape ----
     phase(6, "ICP config 1", **run_icp(dev))
@@ -508,11 +608,8 @@ def main():
     # clouds, k = 8), and the covariances it feeds on both sides
     k1_pair = {}
     for side, cloud_t in (("source", src), ("target", tgt)):
-        err, ms, plain_ms, clear_n, ctx_ms = compare_knn(bf_knn, cloud_t, cloud_t, 8)
         side_cov = pcov if side == "source" else vgicp.source_covariances(cloud_t, pmask, k=8, method="exact")
-        k1_pair[side] = dict(n=int(cloud_t.shape[1]), max_abs_err=err, ms=ms, plain_ms=plain_ms, cdist_topk_ms=ctx_ms,
-                             bound_ms=knn_bound_ms(cloud_t.shape[1], cloud_t.shape[1], 8)[0],
-                             queries_clear_of_ties=clear_n,
+        k1_pair[side] = dict(n=int(cloud_t.shape[1]), **compare_knn(bf_knn, cloud_t, cloud_t, 8),
                              cov_max_abs_err=compare_cov(bf_knn, vgicp, cloud_t, pmask, side_cov, 8))
     phase(7, "GICP/VGICP exact covariances", k1_launches=pair_launches, k1_vs_plain_k8=k1_pair, **pair)
     bench = subprocess.run([sys.executable, os.path.join(ROOT, "apps", "align_bench_torch.py"), "--device", "cuda",
@@ -525,7 +622,9 @@ def main():
     print(json.dumps({"kernels": [
         {"name": "bf_knn", "route": "cuda", "source": "pointcloud_slam_tpu_torch/csrc/bf_knn.cu",
          "replaces": "pointcloud_slam_tpu/ops/pallas/bf_knn.py:47", "launches": launches["bf_knn"],
-         "max_abs_err": max(err20k, errmap, *(v["max_abs_err"] for v in k1_pair.values())), "ms": msmap, "plain_ms": plainmap, "bound_ms": k1_bound, "bound_by": k1_bound_by,
+         "max_abs_err": max(*sweep.values(), *(v["max_abs_err"] for v in (k1_20k, k1_map, *k1_pair.values(),
+                                                                            *scan_fields.values()))),
+         "ms": k1_map["ms"], "plain_ms": k1_map["plain_ms"], "bound_ms": k1_bound, "bound_by": k1_bound_by,
          "library_ms": None},
         {"name": "nearest_neighbor", "route": "cuda", "source": "pointcloud_slam_tpu_torch/csrc/bf_knn.cu",
          "replaces": "pointcloud_slam_tpu/ops/pallas/bf_knn.py:25", "launches": launches["nearest_neighbor"],

@@ -61,9 +61,11 @@ def library() -> ctypes.CDLL:
         os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pcs_bf_knn.argtypes = [p, i, p, i, i, p, p, p]
+    # (queries, n, database, m, k, instance, splits, d2, idx, part_d2, part_idx, stream)
+    lib.pcs_bf_knn.argtypes = [p, i, p, i, i, i, i, p, p, p, p, p]
     lib.pcs_bf_knn.restype = i
-    lib.pcs_bf_nn.argtypes = [p, i, p, i, p, p, p]
+    # (queries, n, database, m, splits, d2, idx, part_d2, part_idx, stream)
+    lib.pcs_bf_nn.argtypes = [p, i, p, i, i, p, p, p, p, p]
     lib.pcs_bf_nn.restype = i
     lib.build_seconds, lib.build_log = seconds, log
     return lib

@@ -29,7 +29,7 @@ def _sets_equal(idx_a, idx_b):
     np.testing.assert_array_equal(np.sort(idx_a, axis=0), np.sort(idx_b, axis=0))
 
 
-@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("k", [1, 4, 8])
 def test_plain_knn_matches_pallas(rng, k):
     db = rng.uniform(-5, 5, size=(3, 1024)).astype(np.float32)
     q = rng.uniform(-5, 5, size=(3, 256)).astype(np.float32)
@@ -60,6 +60,81 @@ def test_ties_keep_lower_index_and_short_database():
     d2, idx = bf_knn.knn(torch.from_numpy(q), torch.from_numpy(db), k=5)
     np.testing.assert_array_equal(idx[:, 0].numpy(), [0, 1, 3, 2, -1])
     np.testing.assert_allclose(d2[:, 0].numpy(), [1, 1, 1, 4, 3e38], rtol=1e-6)
+
+
+def _tied_clouds(seed, n=301, m=777):
+    """Integer coordinates in a small box: every distance is exact and most
+    are shared by many points, on both sides of any split boundary."""
+    g = np.random.default_rng(seed)
+    q = g.integers(-3, 4, size=(3, n)).astype(np.float32)
+    db = g.integers(-3, 4, size=(3, m)).astype(np.float32)
+    return torch.from_numpy(q), torch.from_numpy(db)
+
+
+@pytest.mark.parametrize("k", [1, 5, 21])
+def test_plain_knn_orders_ties_by_index(k):
+    """Among equal distances the lower index wins, at the k-th place too
+    (torch.topk alone keeps any of them): equal to a lexicographic sort."""
+    q, db = _tied_clouds(k)
+    d2, idx = bf_knn.knn_plain(q, db, k)
+    full = ((q.numpy()[:, :, None] - db.numpy()[:, None, :]) ** 2).sum(0)           # (n, m), exact
+    want = np.stack([np.lexsort((np.arange(full.shape[1]), row))[:k] for row in full], axis=1)
+    np.testing.assert_array_equal(idx.numpy(), want)
+    np.testing.assert_array_equal(d2.numpy(), np.take_along_axis(full, want.T, axis=1).T)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 7, 16])
+@pytest.mark.parametrize("k", [1, 8, 150])
+def test_plain_split_equals_plain(k, splits):
+    """The split-and-merge mirror of the kernel's two passes against the
+    single search, bit for bit (d2 and idx): ragged sizes, masses of equal
+    distances across every split boundary, and k = 150 above the 111 points
+    of a range when there are 7 (and above the 49 when there are 16)."""
+    q, db = _tied_clouds(100 + k)
+    d2, idx = bf_knn.knn_plain(q, db, k)
+    sd2, sidx = bf_knn.knn_plain_split(q, db, k, splits)
+    assert sidx.dtype == torch.int32 and sd2.shape == (k, q.shape[1])
+    assert torch.equal(sd2, d2) and torch.equal(sidx, idx)
+
+
+def test_plain_split_short_database():
+    """More ranges than points: empty ranges give -1 / 3e38 rows that lose the merge."""
+    q, db = _tied_clouds(3, n=10, m=3)
+    d2, idx = bf_knn.knn_plain_split(q, db, 5, 4)
+    pd2, pidx = bf_knn.knn_plain(q, db, 5)
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    assert bool((idx[3:] == -1).all()) and bool((d2[3:] > 1e38).all())
+
+
+@pytest.mark.parametrize("k", [9, 21, bf_knn.MAX_K, bf_knn.MAX_K + 1, 100])
+def test_cpu_path_takes_any_k(rng, k):
+    """MAX_K is the card's limit (the lists live in registers there); on CPU
+    tensors `knn` is the plain version and takes any k."""
+    db = rng.uniform(-5, 5, size=(3, 400)).astype(np.float32)
+    q = rng.uniform(-5, 5, size=(3, 60)).astype(np.float32)
+    d2, idx = bf_knn.knn(torch.from_numpy(q), torch.from_numpy(db), k=k)
+    pd2, pidx = bf_knn.knn_plain(torch.from_numpy(q), torch.from_numpy(db), k)
+    assert d2.shape == (k, 60) and torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    idx_o, d2_o = native.knn(db.T, q.T, k)
+    np.testing.assert_array_equal(idx.numpy().T, idx_o)
+    assert "MAX_K" in bf_knn.knn.__doc__ and "card" in bf_knn.knn.__doc__
+
+
+@pytest.mark.parametrize("n,m", [(1, 5), (6144, 28093), (20000, 20000), (200000, 200000)])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 7, 8, 9, 16, 20, 21, 32])
+def test_plan_covers_every_k(n, m, k):
+    """The card's plan for any 1 <= k <= MAX_K: an instance at least k and
+    4 to 16 ranges in fours; a function of the shapes."""
+    instance, splits = bf_knn.plan(n, m, k)
+    assert k <= instance <= bf_knn.MAX_K and instance in bf_knn._INSTANCES
+    assert splits % 4 == 0 and 4 <= splits <= 16
+    assert bf_knn.plan(n, m, k) == (instance, splits)
+
+
+@pytest.mark.parametrize("k", [0, bf_knn.MAX_K + 1])
+def test_plan_refuses_k_outside_the_cards_range(k):
+    with pytest.raises(ValueError, match=str(bf_knn.MAX_K)):
+        bf_knn.plan(100, 100, k)
 
 
 def test_masked_points_never_selected(rng):

@@ -23,12 +23,15 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("k", bf_knn.KERNEL_KS)
-@pytest.mark.parametrize("n,m", [(1, 5), (300, 700), (1500, 2049)])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 7, 8, 9, 16, 20, 21, 32])
+@pytest.mark.parametrize("n,m", [(1, 5), (100, 5000), (300, 700), (1500, 2049), (700, 9001)])
 def test_bf_knn_kernel_matches_plain(cuda, k, n, m):
-    """Ragged sizes (no tile multiples), k > M included: d2 at rtol 1e-5 /
-    atol 1e-6 (FMA vs separate multiply-add), index sets equal away from
-    near-ties, rows ascending, launches counted."""
+    """Ragged sizes (no tile multiples), k > M included, every instance and
+    the k between them, fewer queries than one block (1, 100), ranges that
+    are empty or shorter than k (M = 5) and shapes the plan splits further
+    (S > 4 from M = 2049 on): d2 at rtol 1e-5 / atol 1e-6 (FMA
+    vs separate multiply-add), index sets equal away from near-ties, rows
+    ascending, launches counted."""
     g = np.random.default_rng(k * 1000 + n)
     q = torch.from_numpy(g.uniform(-5, 5, size=(3, n)).astype(np.float32)).to(cuda)
     db = torch.from_numpy(g.uniform(-5, 5, size=(3, m)).astype(np.float32)).to(cuda)
@@ -36,6 +39,7 @@ def test_bf_knn_kernel_matches_plain(cuda, k, n, m):
     d2, idx = bf_knn.knn(q, db, k=k)
     torch.cuda.synchronize()
     assert bf_knn.knn.launches == before + 1
+    assert d2.shape == (k, n) and idx.shape == (k, n) and idx.dtype == torch.int32
     pd2, pidx = bf_knn.knn_plain(q, db, k=k + 1)
     torch.testing.assert_close(d2, pd2[:k], rtol=1e-5, atol=1e-6)
     assert bool((d2[1:] >= d2[:-1]).all())
@@ -45,6 +49,62 @@ def test_bf_knn_kernel_matches_plain(cuda, k, n, m):
         assert bool(same[clear].all())
     else:  # fewer database points than k: the tail is -1 / 3e38
         assert bool((idx[m:] == -1).all()) and bool((d2[m:] > 1e38).all())
+
+
+def test_bf_knn_plan_splits_these_shapes():
+    """The shapes above that are meant to split beyond a block's four ranges
+    do, and a short database does not."""
+    assert bf_knn.plan(1500, 2049, 8)[1] > 4 and bf_knn.plan(700, 9001, 20)[1] > 4
+    assert bf_knn.plan(100, 5000, 1)[1] > 4
+    assert bf_knn.plan(300, 700, 8)[1] == 4 and bf_knn.plan(1, 5, 8)[1] == 4
+
+
+@pytest.mark.parametrize("splits", [4, 8, 12, 16])
+@pytest.mark.parametrize("k", [1, 8, 20])
+def test_bf_knn_kernel_every_plan_matches_plain(cuda, k, splits):
+    """Both passes at every number of ranges, integer coordinates so that
+    distances tie in masses: d2 and indices equal to the plain version
+    exactly (every product and sum is exact), whatever the split."""
+    instance = bf_knn.plan(777, 3001, k)[0]
+    g = np.random.default_rng(k + 10 * splits)
+    q = torch.from_numpy(g.integers(-6, 6, size=(3, 777)).astype(np.float32)).to(cuda)
+    db = torch.from_numpy(g.integers(-6, 6, size=(3, 3001)).astype(np.float32)).to(cuda)
+    d2, idx = bf_knn.run_plan(q, db, k, instance, splits)
+    torch.cuda.synchronize()
+    pd2, pidx = bf_knn.knn_plain(q, db, k=k)
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+
+
+@pytest.mark.parametrize("case", ["approaching", "identical", "far_queries"])
+@pytest.mark.parametrize("k", [1, 8, 20])
+def test_bf_knn_kernel_hard_orders(cuda, case, k):
+    """Orders that stress the queues and the bounds the ranges share: a
+    database sorted so that every point beats the ones before it, a database
+    of one repeated point (indices 0..k-1 must come out), and queries that
+    pad_cloud moved far away. Integer coordinates: equal to the plain
+    version exactly."""
+    g = np.random.default_rng(k)
+    db = g.integers(-40, 40, size=(3, 5000)).astype(np.float32)
+    q = g.integers(-2, 3, size=(3, 500)).astype(np.float32)
+    if case == "approaching":
+        db = db[:, np.argsort(-(db ** 2).sum(0), kind="stable")]
+    elif case == "identical":
+        db[:] = 7.0
+    else:
+        q[:, ::3] = 1.0e17
+        db[:, ::5] = 1.0e17
+    q, db = torch.from_numpy(q).to(cuda), torch.from_numpy(np.ascontiguousarray(db)).to(cuda)
+    d2, idx = bf_knn.knn(q, db, k=k)
+    torch.cuda.synchronize()
+    pd2, pidx = bf_knn.knn_plain(q, db, k=k)
+    if case == "far_queries":      # (1e17 - x)^2 rounds differently with and without FMA
+        torch.testing.assert_close(d2, pd2, rtol=1e-5, atol=1e-6)
+        near = q[0] < 1e16
+        assert torch.equal(idx[:, near], pidx[:, near])
+    else:
+        assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    if case == "identical":
+        assert idx[:, 0].tolist() == list(range(k))
 
 
 def test_bf_knn_kernel_ties_and_masking(cuda):
@@ -58,10 +118,41 @@ def test_bf_knn_kernel_ties_and_masking(cuda):
     assert int(idx.max()) < 300
 
 
+def test_kernels_ties_across_splits(cuda):
+    """Copies of a point in three different database splits are at distance 0
+    of each other: K1 lists them in index order, K2 returns the first."""
+    g = np.random.default_rng(5)
+    db = torch.from_numpy(g.uniform(-5, 5, size=(3, 9000)).astype(np.float32)).to(cuda)
+    first = torch.arange(50, device=cuda) * 3
+    mid, last = 4500 + first, 8999 - first
+    db[:, mid] = db[:, first]
+    db[:, last] = db[:, first]
+    q = db[:, :700].contiguous()
+    for k in (1, 8):
+        splits = bf_knn.plan(700, 9000, k)[1]
+        chunk = -(-9000 // splits)
+        ranges = [at // chunk for at in (first, mid, last)]
+        assert int(ranges[0].max()) < int(ranges[1].min()) and int(ranges[1].max()) < int(ranges[2].min())
+    d2, idx = bf_knn.knn(q, db, k=8)
+    nd2, nidx = bf_knn.nearest_neighbor(q, db)
+    torch.cuda.synchronize()
+    want = torch.stack([first, mid, last]).to(torch.int32)
+    assert bool((idx[:3, first] == want).all()) and bool((d2[:3, first] == 0).all())
+    assert bool((nidx[first] == want[0]).all()) and bool((nd2[first] == 0).all())
+    pd2, pidx = bf_knn.knn_plain(q, db, k=8)
+    assert torch.equal(idx[:, first], pidx[:, first])
+
+
 def test_bf_knn_wrapper_rejects(cuda):
     q = torch.rand(3, 10, device=cuda)
+    with pytest.raises(ValueError, match=str(bf_knn.MAX_K)):
+        bf_knn.knn(q, q, k=bf_knn.MAX_K + 1)         # above the card's limit
     with pytest.raises(ValueError):
-        bf_knn.knn(q, q, k=7)                        # no instance for k=7
+        bf_knn.knn(q, q, k=0)
+    d2, idx = bf_knn.knn(q, q, k=7)                   # no instance of its own: runs the next one up
+    pd2, pidx = bf_knn.knn_plain(q, q, k=7)
+    torch.testing.assert_close(d2, pd2, rtol=1e-5, atol=1e-6)
+    assert torch.equal(idx, pidx)
     with pytest.raises(ValueError):
         bf_knn.knn(q.double(), q.double(), k=8)      # dtype
     with pytest.raises(ValueError):
@@ -70,9 +161,9 @@ def test_bf_knn_wrapper_rejects(cuda):
         bf_knn.knn(q, q.cpu(), k=8)                  # devices differ
 
 
-@pytest.mark.parametrize("n,m", [(1, 5), (300, 700), (1500, 2049)])
+@pytest.mark.parametrize("n,m", [(1, 5), (100, 5000), (300, 700), (1500, 2049), (700, 9001)])
 def test_nearest_neighbor_kernel_matches_plain(cuda, n, m):
-    """K2 at ragged sizes: d2 at rtol 1e-5 / atol 1e-6 (FMA against separate
+    """K2 at ragged sizes, split (M >= 2049) and unsplit: d2 at rtol 1e-5 / atol 1e-6 (FMA against separate
     multiply-add), indices equal away from near-ties, launches counted
     separately from K1's."""
     g = np.random.default_rng(n + m)
