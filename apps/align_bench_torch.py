@@ -5,10 +5,10 @@ ported registration family on the same synthetic source/target pair, with
 single-shot and repeated timings, the fitness score and the translation
 error against the known offset.
 
-Rows: point_to_plane_icp, vgicp (knn cov), vgicp (exact/pallas cov) — exact
-covariances from kernel K1 on the GPU —, cov: voxel knn, cov: exact knn,
-gicp. Not ported yet, so not run: the NDT rows (ndt_p2d, ndt_d2d), the RBF
-rows (vgicp (rbf cov), cov: rbf) and PCD input (--target/--source).
+Rows: point_to_plane_icp, ndt_p2d, ndt_d2d, vgicp (knn cov), vgicp (rbf
+cov), vgicp (exact/pallas cov) — exact covariances from kernel K1 on the
+GPU —, cov: voxel knn, cov: exact knn, cov: rbf, gicp. Not ported yet:
+PCD input (--target/--source).
 
     python apps/align_bench_torch.py                                  # on the GPU
     python apps/align_bench_torch.py --device cpu --n_points 3000 --reps 1
@@ -99,21 +99,33 @@ def main(argv=None):
     icp_cfg = register.ICPConfig(solver=register.SolverConfig(max_iterations=30))
     run("point_to_plane_icp", lambda: register.point_to_plane_icp(fit_grid, fit_map, src_t, cfg=icp_cfg).pose)
 
+    # stencil-baked targets (the serving-path layout; identical results)
+    ncfg = register.NDTConfig(resolution=1.0)
+    ng, nmap = register.ndt.build_target(ncfg, tgt_t, capacity=1 << 15, baked=True)
+    run("ndt_p2d", lambda: register.ndt.align(ng, nmap, src_t, cfg=ncfg).pose)
+    sm, sc, sv, _ = register.ndt.voxelize_source(ncfg, src_t)
+    run("ndt_d2d", lambda: register.ndt.align_d2d(ng, nmap, sm, sc, sv, cfg=ncfg).pose)
+
     vcfg = register.VGICPConfig(resolution=1.0)
     vg, vmap = register.vgicp.build_target(vcfg, tgt_t, capacity=1 << 15, baked=True)
     cov_knn = register.source_covariances(src_t, mask, k=8, resolution=1.0)
     run("vgicp (knn cov)", lambda: register.vgicp.align(vg, vmap, src_t, cov_knn, mask, cfg=vcfg).pose)
+    cov_rbf = register.source_covariances_rbf(src_t, mask, resolution=1.0, kernel_width=0.5)
+    run("vgicp (rbf cov)", lambda: register.vgicp.align(vg, vmap, src_t, cov_rbf, mask, cfg=vcfg).pose)
     cov_exact = register.source_covariances(src_t, mask, k=8, method="exact")
     run("vgicp (exact/pallas cov)", lambda: register.vgicp.align(vg, vmap, src_t, cov_exact, mask, cfg=vcfg).pose)
 
     # covariance estimation alone (fast_gicp README.md:119-123 compares
     # kdtree / bruteforce / RBF on an RTX 2080 Ti)
-    for name, method in (("cov: voxel knn", "voxel"), ("cov: exact knn", "exact")):
-        register.source_covariances(src_t, mask, k=8, resolution=1.0, method=method)
+    for name, cov in (("cov: voxel knn", lambda: register.source_covariances(src_t, mask, k=8, resolution=1.0)),
+                      ("cov: exact knn", lambda: register.source_covariances(src_t, mask, k=8, method="exact")),
+                      ("cov: rbf", lambda: register.source_covariances_rbf(src_t, mask, resolution=1.0,
+                                                                             kernel_width=0.5))):
+        cov()
         sync()
         t0 = time.perf_counter()
         for _ in range(args.reps):
-            register.source_covariances(src_t, mask, k=8, resolution=1.0, method=method)
+            cov()
             sync()
         print(f"{name:26s} {'':9s}    {(time.perf_counter() - t0) / args.reps * 1e3:9.2f} ms", flush=True)
 

@@ -33,6 +33,21 @@ kernel on them against its plain PyTorch version. Phases:
      align against the JAX package's schedule; then K1 against its plain
      version on both clouds at k=8 and the covariances of both against the
      plain k-NN's; then apps/align_bench_torch.py
+  8. NDT on the same pair: P2D align on a plain and a stencil-baked target,
+     D2D align from the voxelized source, and VGICP on RBF source
+     covariances: ms per align, translation error, host syncs per align,
+     launches and GPU busy from a torch.profiler window
+  9. LIO-SAM SLAM at bench.py config 6's full shapes (bench.py:720-731:
+     512 keyframes with 480 pre-populated, 64 loops, 512 corner / 2048
+     surface points a frame, baked local maps; keyframes every 0.3 m, 3 GN
+     sweeps of 24 PCG iterations): 32 frames on the fresh and the revisit
+     shape, then the revisit shape at 4,096 keyframes (4,064 pre-populated)
+     over 8 frames; frames/s, final error, loops, the fresh shape's frame-0
+     latch and drift per metre, per-frame p50/p99 and launches, host reads,
+     host syncs and GPU busy per frame of each class (plain, loop, drain),
+     peak memory; then apps/run_slam_offline_torch.py --synthetic 40. No
+     hand-written kernel lies on this path (the local maps' k-NN is the
+     voxel hash's): K1 and K2 are counted and must stay at 0
 
 Every timed K1 / K2 shape prints what the wrapper's plan ran it with: the
 instance (list length), R (queries per thread, always 1) and S (database
@@ -40,7 +55,8 @@ splits).
 Each phase prints one line; the kernels' JSON line and the card's
 nvidia-smi line come before the last line, which is the result object.
 Any failed check raises, so the script exits non-zero. Without a CUDA
-device it exits non-zero before doing anything; it imports nothing of JAX.
+device it exits non-zero before doing anything; it imports nothing of JAX
+(checked at the end).
 """
 
 import json
@@ -60,7 +76,12 @@ N_POINTS = 20_000
 N_IMU = 20
 
 
+T_START = time.perf_counter()
+
+
 def phase(number, name, **fields):
+    """One phase line; `t_s` is the script's wall time when it was printed."""
+    fields["t_s"] = round(time.perf_counter() - T_START, 1)
     print(f"phase {number} {name}: " + json.dumps(fields), flush=True)
 
 
@@ -494,6 +515,284 @@ def map_points(grid):
     return grid.pts[:, live].contiguous()
 
 
+def run_ndt(dev):
+    """NDT on align_bench's pair (apps/align_bench.py:102-109: resolution 1 m,
+    target capacity 1<<15): P2D on the plain target (as SLAM's RS loop
+    verification builds it) and on the stencil-baked one, D2D from the
+    voxelized source, VGICP on RBF source covariances (kernel width 0.5 m)."""
+    import torch
+
+    from apps.align_bench_torch import make_pair
+    from pointcloud_slam_tpu_torch import register
+
+    src_t, tgt_t, mask, t_true, fit_grid, fit_map = make_pair(17_000, dev)
+    ncfg = register.NDTConfig(resolution=1.0)
+    build_ms, (pg, pmap) = timed(lambda: register.ndt.build_target(ncfg, tgt_t, capacity=1 << 15), 3)
+    bake_ms, (bg, bmap) = timed(lambda: register.ndt.build_target(ncfg, tgt_t, capacity=1 << 15, baked=True), 1)
+    vox_ms, (sm, sc, sv, _) = timed(lambda: register.ndt.voxelize_source(ncfg, src_t), 3)
+    rbf_ms, cov_rbf = timed(lambda: register.source_covariances_rbf(src_t, mask, resolution=1.0, kernel_width=0.5), 3)
+    check(bool(torch.isfinite(cov_rbf).all()), "non-finite RBF covariance")
+    vcfg = register.VGICPConfig(resolution=1.0)
+    vg, vmap = register.vgicp.build_target(vcfg, tgt_t, capacity=1 << 15, baked=True)
+    out = dict(target_build_ms=build_ms, baked_target_build_ms=bake_ms, voxelize_source_ms=vox_ms,
+               source_voxels=int(sv.sum()), rbf_cov_ms=rbf_ms)
+    # gates: tests/test_registration.py (P2D 0.1 m, D2D 0.15 m, RBF 0.15 m)
+    solves = {"p2d_plain": (lambda: register.ndt.align(pg, pmap, src_t, cfg=ncfg), 0.1),
+              "p2d_baked": (lambda: register.ndt.align(bg, bmap, src_t, cfg=ncfg), 0.1),
+              "d2d_baked": (lambda: register.ndt.align_d2d(bg, bmap, sm, sc, sv, cfg=ncfg), 0.15),
+              "vgicp_rbf_cov": (lambda: register.vgicp.align(vg, vmap, src_t, cov_rbf, mask, cfg=vcfg), 0.15)}
+    for name, (solve, gate) in solves.items():
+        ms, res = timed(solve, 5)
+        _, syncs = count_syncs(solve)
+        check(bool(torch.isfinite(res.pose.R).all() and torch.isfinite(res.pose.t).all()), f"{name}: non-finite pose")
+        terr = float(np.linalg.norm(res.pose.t.cpu().numpy() - t_true))
+        check(terr < gate, f"{name}: terr {terr} >= {gate} m")
+        fitness, _ = register.fitness_score(fit_grid, fit_map, res.pose.apply(src_t), mask, max_range=1.0)
+        launches, busy, wall, top = profile_launches(solve)
+        out[name] = dict(ms_per_align=ms, terr_m=terr, fitness=float(fitness), iterations=int(res.iterations),
+                         syncs_per_align=syncs, profile=dict(launches=launches, gpu_busy_ms=busy, wall_ms=wall,
+                                                             idle_share=1 - busy / wall, top_device_ms=top))
+    return out
+
+
+SLAM_KF_DT = 0.5           # pre-populated keyframe spacing in time [s] (bench.py:711)
+SLAM_KF_ANG = 0.04 * 1.5   # revisit keyframe spacing on the circle [rad] (bench.py:803)
+
+
+def slam_config(max_keyframes):
+    """bench.py config 6 (bench.py:720-731) on the port."""
+    from pointcloud_slam_tpu_torch.models.liosam import backend as bk
+    from pointcloud_slam_tpu_torch.models.liosam import scan2map as s2m
+    from pointcloud_slam_tpu_torch.models.liosam import slam
+
+    base = s2m.Scan2MapConfig()
+    return slam.SLAMConfig(
+        backend=bk.BackendConfig(max_keyframes=max_keyframes, max_loops=64, keyframe_dist_thresh=0.3,
+                                 gn_iterations=3, pcg_iterations=24),
+        n_corner=512, n_surf=2048,
+        scan2map=s2m.Scan2MapConfig(corner_grid=s2m.baked_grid(base.corner_grid),
+                                    surf_grid=s2m.baked_grid(base.surf_grid)))
+
+
+def slam_circle(ang):
+    return np.array([6.0 * np.cos(ang) - 6.0, 6.0 * np.sin(ang), 1.0], np.float32)
+
+
+def slam_scan(world, t, seed):
+    """bench.py's scan_at: 512 corner and 2048 surface points seen from t (identity attitude)."""
+    from pointcloud_slam_tpu_torch.io import synthetic
+
+    eye = np.eye(3, dtype=np.float32)
+    c, cm = synthetic.take_scan(world[0], eye, t, 512, seed=seed)
+    s, sm = synthetic.take_scan(world[1], eye, t, 2048, seed=1000 + seed)
+    return c, cm, s, sm
+
+
+def slam_populated(cfg, dev, shape, n_pre, world):
+    """bench.py's populate (bench.py:748-784): n_pre keyframes with their
+    odometry factors, feature stores, one batched ScanContext descriptor
+    call, 0.5 s stamps, and local maps from the surrounding-keyframe rebuild.
+    shape "fresh": a straight approach along -y ending at the circle start,
+    real scans on its last ~30 keyframes and noise clouds before (far out of
+    RS range); "revisit": n_pre keyframes along the circle the frames
+    continue. Returns (state, angle of the first measured frame)."""
+    import torch
+
+    from pointcloud_slam_tpu_torch.geom import se3
+    from pointcloud_slam_tpu_torch.models.liosam import scancontext as sc
+    from pointcloud_slam_tpu_torch.models.liosam import slam
+
+    KF = cfg.backend.max_keyframes
+    rng = np.random.default_rng(7)
+    if shape == "fresh":
+        ys = -0.32 * np.arange(n_pre - 1, -1, -1) - 0.35
+        poses = np.stack([np.zeros(n_pre), ys, np.ones(n_pre)], 1).astype(np.float32)
+        ang0 = 0.0
+    else:
+        poses = np.stack([slam_circle(SLAM_KF_ANG * i) for i in range(n_pre)]).astype(np.float32)
+        ang0 = SLAM_KF_ANG * n_pre
+    kf_c = np.zeros((KF, 3, cfg.n_corner), np.float32)
+    kf_cm = np.zeros((KF, cfg.n_corner), bool)
+    kf_s = np.zeros((KF, 3, cfg.n_surf), np.float32)
+    kf_sm = np.zeros((KF, cfg.n_surf), bool)
+    for i in range(n_pre):
+        if shape == "revisit" or poses[i, 1] > -10.0:
+            c, cm, s, sm = slam_scan(world, poses[i], (6000 if shape == "revisit" else 5000) + i)
+        else:
+            c = rng.uniform(-8, 8, (cfg.n_corner, 3)).astype(np.float32) + poses[i]
+            s = rng.uniform(-8, 8, (cfg.n_surf, 3)).astype(np.float32) + poses[i]
+            cm, sm = np.ones(cfg.n_corner, bool), np.ones(cfg.n_surf, bool)
+        kf_c[i], kf_cm[i], kf_s[i], kf_sm[i] = c.T, cm, s.T, sm
+    t_all = np.zeros((KF, 3), np.float32)
+    t_all[:n_pre] = poses
+    odom_t = np.zeros((KF, 3), np.float32)
+    odom_t[1:n_pre] = poses[1:] - poses[:-1]
+    oinfo = np.zeros((KF, 6), np.float32)
+    oinfo[1:n_pre] = [1e6] * 3 + [1e4] * 3
+    kf_time = np.zeros(KF, np.float32)
+    kf_time[:n_pre] = np.arange(n_pre) * SLAM_KF_DT
+
+    def dv(a):
+        return torch.from_numpy(a).to(dev)
+
+    kf_s_d, kf_sm_d = dv(kf_s), dv(kf_sm)
+    descs, keys = sc.make_descriptor(cfg.scancontext, kf_s_d, kf_sm_d)      # one batched call
+    state = slam.create_state(cfg, device=dev)
+    graph = state.graph._replace(t=dv(t_all), n=torch.full((), n_pre, dtype=torch.int32, device=dev),
+                                 odom_t=dv(odom_t), odom_info=dv(oinfo))
+    state = state._replace(
+        graph=graph, kf_corner=dv(kf_c), kf_corner_mask=dv(kf_cm), kf_surf=kf_s_d, kf_surf_mask=kf_sm_d,
+        sc_descs=descs, sc_keys=keys, kf_time=dv(kf_time), pose=se3.Pose(state.pose.R, dv(poses[-1])),
+        frame_idx=torch.full((), int(n_pre * SLAM_KF_DT / cfg.nominal_scan_period), dtype=torch.int32, device=dev))
+    cmap, smap = slam._rebuild_maps(cfg, state, state.graph, state.graph.t[n_pre - 1])
+    return state._replace(corner_map=cmap, surf_map=smap), ang0
+
+
+def slam_frames(dev, world, ang0, n_frames):
+    """The measured frames (bench.py:808-816): scans along the circle from
+    ang0 in steps of 0.04 rad, on the card, and their true positions."""
+    import torch
+
+    frames, gts = [], []
+    for k in range(n_frames):
+        t = slam_circle(ang0 + 0.04 * k)
+        c, cm, s, sm = slam_scan(world, t, k)
+        frames.append(tuple(torch.from_numpy(np.ascontiguousarray(a.T) if a.ndim == 2 else a).to(dev)
+                            for a in (c, cm, s, sm)))
+        gts.append(t)
+    return frames, np.stack(gts)
+
+
+def slam_classes(outs):
+    """Frame classes as bench.py:872-882 splits them: "loop" (a loop factor
+    landed), "drain" (a deferred sweep ran: sweeps pending after the frame,
+    or pending before it), else "plain"."""
+    looped = [bool(o.loop_detected) for o in outs]
+    pending = [int(o.opt_pending) for o in outs]
+    return ["loop" if lp else ("drain" if p > 0 or (k > 0 and pending[k - 1] > 0) else "plain")
+            for k, (lp, p) in enumerate(zip(looped, pending))]
+
+
+def run_slam_shape(cfg, dev, shape, n_pre, n_frames, world, profiled_per_class=2):
+    """One shape: populate, warm up on 3 frames from the populated state
+    (slam_step returns new tensors, so the state is reused), then three
+    passes over the frames from it: timed (a synchronize after each frame);
+    under torch.profiler for the first `profiled_per_class` frames of each
+    class (launches, GPU busy, top device ops; a profiler's own setup and
+    teardown cost seconds a frame); under the CUDA sync debugger frame by
+    frame (host syncs, and the step's own reads, `slam_step.host_reads`).
+    Returns the phase's fields."""
+    import torch
+
+    from pointcloud_slam_tpu_torch.models.liosam import slam
+    from pointcloud_slam_tpu_torch.ops import bf_knn
+
+    t0 = time.perf_counter()
+    state0, ang0 = slam_populated(cfg, dev, shape, n_pre, world)
+    frames, gts = slam_frames(dev, world, ang0, n_frames)
+    torch.cuda.synchronize()
+    populate_s = time.perf_counter() - t0
+    st = state0
+    for f in frames[:3]:
+        st, _ = slam.slam_step(cfg, st, *f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bf_knn.knn.launches = bf_knn.nearest_neighbor.launches = 0
+
+    def replay(step):
+        st, outs = state0, []
+        for f in frames:
+            st, out = step(st, f)
+            outs.append(out)
+        return st, outs
+
+    lat = []
+
+    def timed_step(st, f):
+        t1 = time.perf_counter()
+        out = slam.slam_step(cfg, st, *f)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    t_pass = time.perf_counter()
+    st, outs = replay(timed_step)
+    wall = time.perf_counter() - t_pass
+    peak = torch.cuda.max_memory_allocated()
+    knn_launches = [bf_knn.knn.launches, bf_knn.nearest_neighbor.launches]
+    ts = torch.stack([o.pose.t for o in outs]).cpu().numpy()
+    check(np.isfinite(ts).all() and bool(torch.isfinite(st.graph.t).all()), f"SLAM {shape}: non-finite poses")
+    check(knn_launches == [0, 0], f"SLAM {shape}: K1/K2 launched {knn_launches} times (no caller on this path)")
+    classes = slam_classes(outs)
+    errs = np.linalg.norm(ts - gts, axis=1)
+    res = dict(frames=n_frames, keyframes_before=n_pre, keyframes_after=int(st.graph.n),
+               frames_per_s=n_frames / wall, final_err_m=float(errs[-1]), loops=int(st.n_loops_found),
+               populate_s=populate_s, peak_mem_gib=peak / 2 ** 30, k1_k2_launches=knn_launches)
+    if shape == "fresh":
+        path = float(np.sum(np.linalg.norm(np.diff(gts, axis=0), axis=1)))
+        res.update(frame0_latch_m=float(errs[0]), drift_m_per_m=float((errs[-1] - errs[0]) / max(path, 1e-9)))
+
+    t_passes = [time.perf_counter()]
+    chosen = set()
+    for c in ("plain", "loop", "drain"):
+        chosen.update([k for k, x in enumerate(classes) if x == c][:profiled_per_class])
+    prof = {}
+
+    def profiled_step(st, f):
+        k = len(prof_seen)
+        prof_seen.append(k)
+        if k not in chosen:
+            return slam.slam_step(cfg, st, *f)
+        box = []
+        prof[k] = profile_launches(lambda: box.append(slam.slam_step(cfg, st, *f)))
+        return box[0]
+
+    prof_seen = []
+    _, outs_p = replay(profiled_step)
+    t_passes.append(time.perf_counter())
+    syncs = []
+
+    def counted_step(st, f):
+        r0 = slam.slam_step.host_reads
+        out, n = count_syncs(lambda: slam.slam_step(cfg, st, *f))
+        syncs.append((n, slam.slam_step.host_reads - r0))
+        return out
+
+    _, outs_s = replay(counted_step)
+    t_passes.append(time.perf_counter())
+    per_class = {}
+    for c in ("plain", "loop", "drain"):
+        sel = [k for k, x in enumerate(classes) if x == c]
+        if not sel:
+            continue
+        sel_p = [k for k, x in enumerate(slam_classes(outs_p)) if x == c and k in prof]
+        sel_s = [k for k, x in enumerate(slam_classes(outs_s)) if x == c]
+        ms = np.asarray(lat)[sel]
+        top = {}
+        for k in sel_p:
+            for name_, t in prof[k][3]:
+                top[name_] = top.get(name_, 0.0) + t / len(sel_p)
+        busy = float(np.mean([prof[k][1] for k in sel_p])) if sel_p else float("nan")
+        per_class[c] = dict(
+            count=len(sel), p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+            profiled_frames=len(sel_p),
+            launches_per_frame=float(np.mean([prof[k][0] for k in sel_p])) if sel_p else None,
+            gpu_busy_ms_per_frame=busy, idle_share=1 - busy / float(np.mean(ms)),
+            top_device_ms=sorted(([n_, t] for n_, t in top.items()), key=lambda e: -e[1])[:3],
+            host_syncs_per_frame=float(np.mean([syncs[k][0] for k in sel_s])) if sel_s else None,
+            step_reads_per_frame=float(np.mean([syncs[k][1] for k in sel_s])) if sel_s else None)
+    for c, v in per_class.items():   # no read besides the step's own, 5 eigh and an NDT eigvalsh
+        if v["host_syncs_per_frame"] is not None:
+            check(v["host_syncs_per_frame"] <= v["step_reads_per_frame"] + 6,
+                  f"SLAM {shape} {c} frames: {v['host_syncs_per_frame']} syncs for {v['step_reads_per_frame']} reads")
+    res["per_class"] = per_class
+    # the whole pass's GPU busy, each class's per-frame busy weighted by its frame count
+    busy_all = sum(v["gpu_busy_ms_per_frame"] * v["count"] for v in per_class.values())
+    res["profile"] = dict(gpu_busy_ms=busy_all, unprofiled_wall_ms=wall * 1e3, idle_share=1 - busy_all / (wall * 1e3))
+    res["pass_s"] = dict(timed=wall, profiled=t_passes[1] - t_passes[0], sync_counted=t_passes[2] - t_passes[1])
+    return res, errs
+
+
 def main():
     import torch
 
@@ -508,7 +807,7 @@ def main():
     from pointcloud_slam_tpu_torch.ops import _cuda, bf_knn
     from pointcloud_slam_tpu_torch.register import vgicp
 
-    check("jax" not in sys.modules, "the port imported jax")
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -617,6 +916,32 @@ def main():
     check(bench.returncode == 0, f"align bench failed ({bench.returncode}):\n{bench.stdout}\n{bench.stderr}")
     table = [" ".join(ln.split()) for ln in bench.stdout.split("\n\n")[-1].strip().splitlines()]
     phase(7, "align bench", rc=bench.returncode, table=" | ".join(table))
+
+    # ---- 8. NDT, D2D and RBF covariances on the same pair ----
+    phase(8, "NDT on the align pair", **run_ndt(dev))
+
+    # ---- 9. LIO-SAM SLAM at bench.py config 6's full shapes ----
+    from pointcloud_slam_tpu_torch.io import synthetic
+
+    world = synthetic.make_feature_world()
+    cfg512 = slam_config(512)
+    slam_res = {}
+    for shape in ("fresh", "revisit"):
+        slam_res[shape], _ = run_slam_shape(cfg512, dev, shape, 480, 32, world)
+        phase(9, f"SLAM {shape} (KF 512, 480 pre-populated, 32 frames)", **slam_res[shape])
+    rv, fr = slam_res["revisit"], slam_res["fresh"]
+    check(rv["loops"] >= 1 and rv["final_err_m"] < 0.05,
+          f"SLAM revisit: {rv['loops']} loops, final error {rv['final_err_m']} m (gates: >= 1, < 0.05 m)")
+    check(abs(fr["drift_m_per_m"]) <= 0.01, f"SLAM fresh: drift {fr['drift_m_per_m']} m/m (gate 0.01, bench.py:867)")
+    big, _ = run_slam_shape(slam_config(4096), dev, "revisit", 4064, 8, world)
+    phase(9, "SLAM revisit (KF 4096, 4064 pre-populated, 8 frames)", **big)
+    app = subprocess.run([sys.executable, os.path.join(ROOT, "apps", "run_slam_offline_torch.py"), "--synthetic", "40",
+                          "--device", "cuda", "--out_dir", str(_cuda.BUILD_DIR / "smoke_slam")],
+                         capture_output=True, text=True, timeout=600, cwd=ROOT)
+    check(app.returncode == 0, f"SLAM app failed ({app.returncode}):\n{app.stdout}\n{app.stderr}")
+    phase(9, "SLAM app", rc=app.returncode, out=app.stdout.strip().splitlines()[0])
+    check("jax" not in sys.modules, "the port imported jax")
+    phase(10, "done", wall_s=time.perf_counter() - t_script)
 
     k1_bound, k1_bound_by = knn_bound_ms(pts.shape[1], pts.shape[1], 20)
     print(json.dumps({"kernels": [

@@ -6,7 +6,9 @@ with the same field names will do — and build the port's on `device` (the
 GPU unless the caller says otherwise). Besides LIO state they carry
 registration targets: a GICP target (voxel map + flat covariance
 attributes) and plain or stencil-baked Gaussian voxel maps, so that both
-sides can align against the same target. `to_numpy` goes back: the port's
+sides can align against the same target; and SLAM state: preintegrated IMU
+factors, pose graphs and whole `SLAMState`s, so that both packages can
+start from one populated state. `to_numpy` goes back: the port's
 NamedTuples with numpy leaves in the JAX package's dtypes (fingerprint rows
 back to uint32, host flags and counters back to 0-d arrays), so both sides'
 states compare leaf by leaf.
@@ -17,8 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .geom.se3 import Pose
 from .models.lio import state as st
 from .models.lio.pipeline import LIOFrame, LIOState
+from .models.lio.preintegration import PreintegratedImu
+from .models.liosam.backend import PoseGraph
+from .models.liosam.slam import SLAMState
 from .ops.gaussian_grid import BakedGaussianMap, GaussianVoxelMap
 from .ops.voxel_grid import VoxelHashMap
 
@@ -83,10 +89,27 @@ def lio_state_from_numpy(tree, device="cuda") -> LIOState:
     )
 
 
+def preintegrated_from_numpy(p, device="cuda") -> PreintegratedImu:
+    return PreintegratedImu(*(_t(getattr(p, f), device) for f in PreintegratedImu._fields))
+
+
+def pose_graph_from_numpy(g, device="cuda") -> PoseGraph:
+    return PoseGraph(*(preintegrated_from_numpy(g.imu_pim, device) if f == "imu_pim" else _t(getattr(g, f), device)
+                       for f in PoseGraph._fields))
+
+
+def slam_state_from_numpy(s, device="cuda") -> SLAMState:
+    """A JAX `SLAMState` with numpy leaves (pose graph, voxel maps, keyframe
+    stores, counters) as the port's."""
+    fields = dict(graph=pose_graph_from_numpy(s.graph, device), corner_map=grid_from_numpy(s.corner_map, device),
+                  surf_map=grid_from_numpy(s.surf_map, device), pose=Pose(_t(s.pose.R, device), _t(s.pose.t, device)))
+    return SLAMState(**{f: fields[f] if f in fields else _t(getattr(s, f), device) for f in SLAMState._fields})
+
+
 def to_numpy(obj):
-    """The port's state (LIOState, VoxelHashMap, Gaussian maps, NavState,
-    LIOFrame or any NamedTuple of tensors) as the same NamedTuple with numpy
-    leaves in the JAX package's dtypes."""
+    """The port's state (LIOState, SLAMState, PoseGraph, VoxelHashMap,
+    Gaussian maps, NavState, LIOFrame or any NamedTuple of tensors) as the
+    same NamedTuple with numpy leaves in the JAX package's dtypes."""
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     if isinstance(obj, (VoxelHashMap, GaussianVoxelMap, BakedGaussianMap)):

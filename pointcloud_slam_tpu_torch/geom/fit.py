@@ -1,5 +1,6 @@
 """Batched geometric fitting primitives (port of `pointcloud_slam_tpu/geom/fit.py`):
-plane fit and the closed-form 3x3 symmetric eigendecomposition and solve.
+plane fit, LOAM line fit and the closed-form 3x3 symmetric eigendecomposition
+and solve.
 
 Point blocks are (3, K, N) — coordinate axis leading, the big point axis
 minor. All solves are closed-form component arithmetic on (N,) tensors; no
@@ -162,3 +163,30 @@ def plane_fit(pts: torch.Tensor, mask: torch.Tensor, threshold: float = 0.1, min
     enough = torch.sum(mask, dim=0) >= min_pts
     valid = ok_resid & enough & finite & (norm > _EPS)
     return coef, valid
+
+
+def line_fit(pts: torch.Tensor, mask: torch.Tensor, ratio: float = 3.0):
+    """LOAM corner line fit: centroid + covariance eigen, valid if l_max > ratio * l_mid.
+
+    pts (3, K, ...), mask (K, ...).
+    Returns (center (3, ...), direction (3, ...) unit, valid (...,)).
+    """
+    m = mask.to(pts.dtype)
+    cnt = torch.clamp(torch.sum(m, dim=0), min=1.0)
+    cx = torch.sum(pts[0] * m, dim=0) / cnt
+    cy = torch.sum(pts[1] * m, dim=0) / cnt
+    cz = torch.sum(pts[2] * m, dim=0) / cnt
+    dx = (pts[0] - cx[None]) * m
+    dy = (pts[1] - cy[None]) * m
+    dz = (pts[2] - cz[None]) * m
+    a00 = torch.sum(dx * dx, dim=0) / cnt
+    a01 = torch.sum(dx * dy, dim=0) / cnt
+    a02 = torch.sum(dx * dz, dim=0) / cnt
+    a11 = torch.sum(dy * dy, dim=0) / cnt
+    a12 = torch.sum(dy * dz, dim=0) / cnt
+    a22 = torch.sum(dz * dz, dim=0) / cnt
+    vals, vecs = eigh3x3_soa(a00, a01, a02, a11, a12, a22)
+    center = torch.stack([cx, cy, cz], dim=0)
+    direction = vecs[2]  # largest
+    valid = (vals[2] > ratio * vals[1]) & (torch.sum(mask, dim=0) >= 3)
+    return center, direction, valid

@@ -34,11 +34,22 @@ class Pose(NamedTuple):
         Rt = self.R.transpose(-1, -2)
         return Pose(Rt, -_mv(Rt, self.t))
 
+    @property
+    def matrix(self) -> torch.Tensor:
+        """Homogeneous (..., 4, 4)."""
+        bottom = torch.zeros(self.t.shape[:-1] + (1, 4), dtype=self.t.dtype, device=self.t.device)
+        bottom[..., 0, 3].fill_(1.0)
+        return torch.cat([torch.cat([self.R, self.t[..., :, None]], dim=-1), bottom], dim=-2)
+
 
 def identity(dtype=torch.float32, batch=(), device=None) -> Pose:
     R = torch.eye(3, dtype=dtype, device=device).expand(tuple(batch) + (3, 3))
     t = torch.zeros(tuple(batch) + (3,), dtype=dtype, device=device)
     return Pose(R, t)
+
+
+def from_matrix(M: torch.Tensor) -> Pose:
+    return Pose(M[..., :3, :3], M[..., :3, 3])
 
 
 def exp(xi: torch.Tensor) -> Pose:
@@ -54,3 +65,16 @@ def retract_left(p: Pose, xi: torch.Tensor) -> Pose:
     (rotation applied exactly via SO(3) exp, translation added directly)."""
     dR = so3.exp(xi[..., :3])
     return Pose(dR @ p.R, _mv(dR, p.t) + xi[..., 3:])
+
+
+def log(p: Pose) -> torch.Tensor:
+    omega = so3.log(p.R)
+    V = so3.A_matrix(omega)
+    v = torch.linalg.solve_ex(V, p.t[..., None])[0][..., 0]
+    return torch.cat([omega, v], dim=-1)
+
+
+def boxminus(a: Pose, b: Pose) -> torch.Tensor:
+    """Left-tangent difference: xi with retract_left(b, xi) ~= a (exact for R)."""
+    dR = a.R @ b.R.transpose(-1, -2)
+    return torch.cat([so3.log(dR), a.t - _mv(dR, b.t)], dim=-1)

@@ -113,6 +113,56 @@ def boxminus(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
     return log(Rb.transpose(-1, -2) @ Ra)
 
 
+def normalize(R: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalize a near-rotation matrix: two steps of the polar
+    update R <- 1.5 R - 0.5 R R^T R (quadratic near SO(3))."""
+    for _ in range(2):
+        R = 1.5 * R - 0.5 * R @ R.transpose(-1, -2) @ R
+    return R
+
+
+def from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (x, y, z, w) -> rotation matrix."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n > 0, 2.0 / torch.where(n == 0, torch.ones_like(n), n), torch.zeros_like(n))
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    return torch.stack(
+        [
+            torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+            torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+            torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def from_euler(rpy: torch.Tensor) -> torch.Tensor:
+    """ZYX (yaw-pitch-roll) euler angles (roll, pitch, yaw) -> rotation matrix."""
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack(
+        [
+            torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1),
+            torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1),
+            torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def to_euler(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> (roll, pitch, yaw), ZYX convention."""
+    pitch = -torch.arcsin(torch.clamp(R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
 def to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> quaternion (x, y, z, w), w >= 0. Shepperd's method, branch-free."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]

@@ -4,7 +4,9 @@ Numpy-only copies of the generators in `pointcloud_slam_tpu/io/synthetic.py`
 (that module cannot be imported without jax): the same seeds give the same
 worlds, trajectories and scans, so the port and the JAX package can be fed
 identical data. `simulate_lio_sequence` builds its frames with this
-package's `feed.make_frame` on the requested device.
+package's `feed.make_frame` on the requested device; `make_feature_world`
+and `take_scan` feed the SLAM tests, `chip_smoke.py` and
+`apps/run_slam_offline_torch.py`.
 """
 
 from __future__ import annotations
@@ -156,3 +158,41 @@ def simulate_lio_sequence(n_frames=40, n_pts=3000, imu_per_frame=20, frame_dt=0.
         )
         frames.append((fr, pos, R))
     return world, traj, frames
+
+
+def make_feature_world(seed=0, half=8.0):
+    """Poles (corners) + walls/floor (surfs) in a dense (2*half)^2 m area —
+    the LOAM-feature world used by the SLAM tests and --synthetic replay."""
+    rng = np.random.default_rng(seed)
+    poles = []
+    for _ in range(30):
+        px, py = rng.uniform(-half, half, 2)
+        z = rng.uniform(0, 3, (50, 1))
+        poles.append(np.concatenate([np.full((50, 1), px), np.full((50, 1), py), z], 1))
+    corners = np.concatenate(poles).astype(np.float32)
+    floor = np.concatenate([rng.uniform(-half, half, (16000, 2)), np.zeros((16000, 1))], 1)
+    walls = []
+    for (a, c) in [(0, half), (0, -half), (1, half), (1, -half)]:
+        w = np.zeros((4000, 3))
+        w[:, a] = c
+        w[:, 1 - a] = rng.uniform(-half, half, 4000)
+        w[:, 2] = rng.uniform(0, 3, 4000)
+        walls.append(w)
+    surfs = np.concatenate([floor] + walls).astype(np.float32)
+    return corners, surfs
+
+
+def take_scan(world, pose_R, pose_t, n_out, max_range=30.0, seed=0):
+    """Range-gated sensor-frame sample of a world cloud, padded to n_out."""
+    rng = np.random.default_rng(seed)
+    rel = (world - pose_t) @ pose_R  # world -> sensor
+    r = np.linalg.norm(rel, axis=1)
+    vis = rel[(r < max_range) & (r > 0.5)]
+    if len(vis) == 0:
+        vis = rel[:1]
+    idx = rng.choice(len(vis), min(n_out, len(vis)), replace=len(vis) < n_out)
+    out = np.zeros((n_out, 3), np.float32)
+    m = np.zeros(n_out, bool)
+    out[: len(idx)] = vis[idx]
+    m[: len(idx)] = True
+    return out, m

@@ -1,5 +1,5 @@
-"""Models (first slice: LIO odometry)."""
+"""Models: LIO odometry and LIO-SAM SLAM."""
 
-from . import lio
+from . import liosam, lio
 
-__all__ = ["lio"]
+__all__ = ["lio", "liosam"]

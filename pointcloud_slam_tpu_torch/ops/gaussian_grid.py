@@ -22,7 +22,7 @@ import torch
 
 from ..geom import fit
 from .voxel_grid import (GridConfig, _claim_loop, _fingerprint, _hash3, _probe_window, _scatter_drop,
-                         point_to_voxel, stencil_offsets)
+                         _stencil_tensor, point_to_voxel, stencil_offsets)
 
 
 class GaussianVoxelMap(NamedTuple):
@@ -137,6 +137,14 @@ def probe(config: GridConfig, g: GaussianVoxelMap, coords3: tuple) -> torch.Tens
     match = g.fp[win] == _fingerprint(cx, cy, cz)[None, :]
     first = torch.argmax(match.to(torch.int8), dim=0, keepdim=True)
     return torch.where(match.any(dim=0), torch.gather(win, 0, first)[0], -1)
+
+
+def probe_stencil(config: GridConfig, g: GaussianVoxelMap, coords: torch.Tensor, nearby: int) -> torch.Tensor:
+    """Slot of every (stencil offset, query) voxel, -1 if absent: one probe of
+    the S*N voxels around integer coords (3, N). Returns (S, N)."""
+    cc = coords[:, None, :] + _stencil_tensor(nearby, coords.device)[:, :, None]   # (3, S, N)
+    S, N = cc.shape[1], cc.shape[2]
+    return probe(config, g, (cc[0].reshape(-1), cc[1].reshape(-1), cc[2].reshape(-1))).reshape(S, N)
 
 
 class BakedGaussianMap(NamedTuple):

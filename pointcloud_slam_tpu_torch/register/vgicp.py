@@ -1,6 +1,5 @@
 """Voxelized GICP (VGICP) and the (V)GICP source covariances (port of
-`pointcloud_slam_tpu/register/vgicp.py`; `source_covariances_rbf` is not
-ported yet).
+`pointcloud_slam_tpu/register/vgicp.py`).
 
 Reference: fast_gicp `fast_vgicp.hpp` + `impl/fast_vgicp_impl.hpp` and the
 CUDA core (`fast_vgicp_cuda.cu`, `compute_derivatives.cu`):
@@ -31,7 +30,6 @@ from .. import ops
 from ..geom import fit, se3
 from ..ops import bf_knn
 from ..ops import gaussian_grid as gg
-from ..ops.voxel_grid import _stencil_tensor
 from . import solver
 
 
@@ -130,6 +128,30 @@ def source_covariances(points: torch.Tensor, mask: torch.Tensor, k: int = 8, res
     return neighbor_covariances(nbrs, nmask, cnt)
 
 
+def source_covariances_rbf(points: torch.Tensor, mask: torch.Tensor, resolution: float = 1.0,
+                           kernel_width: float = 0.5, capacity: int = 1 << 14) -> torch.Tensor:
+    """RBF-kernel covariance estimation (the reference's
+    covariance_estimation_rbf.cu): one pass accumulates per-voxel first and
+    second moments, then each point blends the moments of its stencil-7 voxel
+    neighbourhood with Gaussian weights w_v = exp(-||p - mean_v||^2 / (2 w^2)).
+    PLANE regularization as in the k-NN path. Returns (6, N)."""
+    cfg = ops.GridConfig(capacity=capacity, resolution=resolution, nearby=7)
+    g = gg.accumulate(cfg, gg.create(cfg, points.dtype, device=points.device), points, mask)
+    slot = gg.probe_stencil(cfg, g, ops.point_to_voxel(points, resolution), 7)                  # (S, N)
+    safe = torch.clamp(slot, min=0)
+    cnt = torch.where(slot >= 0, g.count[safe], 0.0)
+    sums = g.sum[:, safe]                                                          # (3, S, N)
+    mean = sums / torch.clamp(cnt, min=1.0)
+    d2 = torch.sum((points[:, None, :] - mean) ** 2, dim=0)
+    w = torch.where(cnt > 0, torch.exp(-d2 / (2.0 * kernel_width * kernel_width)), 0.0)
+    W = torch.sum(w * cnt, dim=0)
+    invW = 1.0 / torch.clamp(W, min=1e-9)
+    mx, my, mz = torch.sum(w * sums, dim=1) * invW
+    Q = torch.sum(w * g.sq[:, safe], dim=1) * invW                                # (6, N)
+    return _plane_regularize(Q[0] - mx * mx, Q[1] - mx * my, Q[2] - mx * mz, Q[3] - my * my, Q[4] - my * mz,
+                             Q[5] - mz * mz, mask & (W >= 3.0))
+
+
 def _check_bake_coverage(baked_map: gg.BakedGaussianMap, baked_cfg: ops.GridConfig):
     """Warn when the bake dropped (voxel, offset) entries for lack of
     capacity: baked correspondences would then miss neighbours. The one host
@@ -189,23 +211,33 @@ def _src_cov_world(src_cov, R):
     return t00, t01, t02, t11, t12, t22
 
 
+def _sym3(c6: torch.Tensor) -> torch.Tensor:
+    """Six symmetric components (6, ...) -> full matrices (3, 3, ...)."""
+    a00, a01, a02, a11, a12, a22 = c6
+    return torch.stack([torch.stack([a00, a01, a02]), torch.stack([a01, a11, a12]), torch.stack([a02, a12, a22])])
+
+
+def _point_jacobian(p: torch.Tensor) -> torch.Tensor:
+    """dq/d[omega, v] = [-hat(p) | I] of world points p (3, ...): (3, 6, ...)."""
+    px, py, pz = p[0], p[1], p[2]
+    zero, one = torch.zeros_like(px), torch.ones_like(px)
+    return torch.stack([torch.stack([zero, pz, -py, one, zero, zero]),
+                        torch.stack([-pz, zero, px, zero, one, zero]),
+                        torch.stack([py, -px, zero, zero, zero, one])])
+
+
 def _weighted_terms(w, p, q, m):
     """(H (6, 6), b (6,), err ()) of sum w q^T M q over correspondences, with
     dq/d[omega, v] = [-hat(p) | I]. w (...), p and q (3, ...) world point and
     residual, m the six components of M (...); all broadcast to one shape.
     The six Jacobian columns are stacked and reduced with one contraction;
     H is symmetrized."""
-    m00, m01, m02, m11, m12, m22 = m
-    M = torch.stack([torch.stack([m00, m01, m02]), torch.stack([m01, m11, m12]), torch.stack([m02, m12, m22])])
+    M = _sym3(m)
     shape = M.shape[2:]
     p = p.expand((3,) + shape)
     r = torch.einsum("ab...,b...->a...", M, q)                      # M q
     err = torch.sum(w * torch.sum(q * r, dim=0))
-    zero, one = torch.zeros_like(p[0]), torch.ones_like(p[0])
-    px, py, pz = p[0], p[1], p[2]
-    J = torch.stack([torch.stack([zero, pz, -py, one, zero, zero]),
-                     torch.stack([-pz, zero, px, zero, one, zero]),
-                     torch.stack([py, -px, zero, zero, zero, one])])  # (3, 6, ...)
+    J = _point_jacobian(p)                                          # (3, 6, ...)
     wJ = (J * w).reshape(3, 6, -1)
     MJ = torch.einsum("ab...,bi...->ai...", M, J).reshape(3, 6, -1)
     H = torch.einsum("aip,ajp->ij", wJ, MJ)
@@ -231,9 +263,7 @@ def _vgicp_search(cfg: VGICPConfig, grid_cfg, target, source, source_mask, packe
         ent, found = gg.baked_probe(grid_cfg, target, coords, packed)
         ok = (ent[:, 0] > 0.5) & found[None, :] & source_mask[None, :]
         return ok, ent[:, 1], ent[:, 2:5].transpose(0, 1), ent[:, 5:11].transpose(0, 1)
-    cc = coords[:, None, :] + _stencil_tensor(cfg.nearby, coords.device)[:, :, None]   # (3, S, N)
-    S, N = cc.shape[1], cc.shape[2]
-    slot = gg.probe(grid_cfg, target, (cc[0].reshape(-1), cc[1].reshape(-1), cc[2].reshape(-1))).reshape(S, N)
+    slot = gg.probe_stencil(grid_cfg, target, coords, cfg.nearby)
     safe = torch.clamp(slot, min=0)
     ok = (slot >= 0) & target.valid[safe] & source_mask[None, :]
     return ok, target.count[safe], target.mean[:, safe], target.cov[:, safe]

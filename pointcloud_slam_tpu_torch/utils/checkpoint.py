@@ -1,6 +1,12 @@
-"""Trajectory output (copy of `pointcloud_slam_tpu/utils/checkpoint.py::save_trajectory_tum`)."""
+"""Trajectory and pose-graph output (copies of `save_trajectory_tum`,
+`save_poses_kitti`, `save_pose_graph_g2o` and `load_pose_graph_g2o` from
+`pointcloud_slam_tpu/utils/checkpoint.py`; the g2o export takes the port's
+PoseGraph)."""
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 
 def save_trajectory_tum(path: str, times, positions, quats_xyzw):
@@ -8,3 +14,87 @@ def save_trajectory_tum(path: str, times, positions, quats_xyzw):
     with open(path, "w") as f:
         for t, p, q in zip(times, positions, quats_xyzw):
             f.write(f"{t:.6f} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}\n")
+
+
+def save_poses_kitti(path: str, rotations, positions):
+    """KITTI format: row-major 3x4 per line
+    (mapOptmization.cpp saveOptimizedVerticesKITTIformat)."""
+    with open(path, "w") as f:
+        for R, t in zip(rotations, positions):
+            M = np.concatenate([np.asarray(R), np.asarray(t).reshape(3, 1)], axis=1)
+            f.write(" ".join(f"{v:.9f}" for v in M.reshape(-1)) + "\n")
+
+
+def _quat_from_R(R):
+    from ..geom import so3
+
+    return so3.to_quat(torch.as_tensor(np.asarray(R, np.float32))).numpy()
+
+
+def save_pose_graph_g2o(path: str, graph):
+    """g2o text export of a PoseGraph (the reference saves its gtsam graph via
+    writeG2o next to the keyframe artifacts, mapOptmization.cpp:1868-1880).
+
+    Emits VERTEX_SE3:QUAT for the active nodes, EDGE_SE3:QUAT for odometry and
+    loop between-factors with their diagonal information (upper triangle)."""
+    graph = type(graph)(*(v.cpu().numpy() if torch.is_tensor(v) else v for v in graph))
+    n = int(graph.n)
+    nl = int(graph.n_loops)
+    R = np.asarray(graph.R)
+    t = np.asarray(graph.t)
+    with open(path, "w") as f:
+        for k in range(n):
+            q = _quat_from_R(R[k])
+            f.write(f"VERTEX_SE3:QUAT {k} " + " ".join(f"{v:.9f}" for v in (*t[k], *q)) + "\n")
+
+        def edge(i, j, Rm, tm, info6):
+            q = _quat_from_R(Rm)
+            # g2o information matrix upper triangle (21 values), diagonal-only;
+            # g2o edge ordering is [x y z qx qy qz] -> translation first
+            I = np.zeros((6, 6))
+            I[0, 0], I[1, 1], I[2, 2] = info6[3], info6[4], info6[5]
+            I[3, 3], I[4, 4], I[5, 5] = info6[0], info6[1], info6[2]
+            upper = [I[a, b] for a in range(6) for b in range(a, 6)]
+            f.write(
+                f"EDGE_SE3:QUAT {i} {j} "
+                + " ".join(f"{v:.9f}" for v in (*tm, *q))
+                + " " + " ".join(f"{v:.6f}" for v in upper) + "\n"
+            )
+
+        oR, ot, oi = np.asarray(graph.odom_R), np.asarray(graph.odom_t), np.asarray(graph.odom_info)
+        for k in range(1, n):
+            edge(k - 1, k, oR[k], ot[k], oi[k])
+        lR, lt, li = np.asarray(graph.loop_R), np.asarray(graph.loop_t), np.asarray(graph.loop_info)
+        la, lb = np.asarray(graph.loop_i), np.asarray(graph.loop_j)
+        for k in range(nl):
+            edge(int(la[k]), int(lb[k]), lR[k], lt[k], li[k])
+
+
+def load_pose_graph_g2o(path: str):
+    """Parse a g2o file -> (ids, positions (N,3), quats_xyzw (N,4), edges).
+
+    edges = list of (i, j, t (3,), q_xyzw (4,), info_diag (6,) [rot, trans])."""
+    ids, ts, qs, edges = [], [], [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "VERTEX_SE3:QUAT":
+                ids.append(int(parts[1]))
+                vals = [float(v) for v in parts[2:9]]
+                ts.append(vals[0:3])
+                qs.append(vals[3:7])
+            elif parts[0] == "EDGE_SE3:QUAT":
+                i, j = int(parts[1]), int(parts[2])
+                vals = [float(v) for v in parts[3:10]]
+                upper = [float(v) for v in parts[10:31]]
+                I = np.zeros((6, 6))
+                k = 0
+                for a in range(6):
+                    for b in range(a, 6):
+                        I[a, b] = upper[k]
+                        k += 1
+                info = np.array([I[3, 3], I[4, 4], I[5, 5], I[0, 0], I[1, 1], I[2, 2]])
+                edges.append((i, j, np.array(vals[0:3]), np.array(vals[3:7]), info))
+    return ids, np.array(ts), np.array(qs), edges

@@ -20,6 +20,7 @@ from pointcloud_slam_tpu.models.lio import state as jst
 from pointcloud_slam_tpu_torch import convert, ops as tops
 from pointcloud_slam_tpu_torch.io import feed, synthetic
 from pointcloud_slam_tpu_torch.models import lio as tlio
+from pointcloud_slam_tpu_torch.models.liosam import backend as tbk, slam as tslam
 from pointcloud_slam_tpu_torch.ops import gaussian_grid as tgg
 
 torch.set_num_threads(2)
@@ -39,6 +40,8 @@ def test_port_and_app_never_import_jax():
             "from pointcloud_slam_tpu_torch import convert; import apps.run_mapping_offline_torch as app;"
             "import pointcloud_slam_tpu_torch.register, pointcloud_slam_tpu_torch.ops.gaussian_grid;"
             "import apps.align_bench_torch as bench; bench.parse_args([]);"
+            "import apps.run_slam_offline_torch as slam_app; slam_app.build_config(slam_app.parse_args([]));"
+            "import pointcloud_slam_tpu_torch.models.liosam;"
             "app.build_config(app.parse_args(['--config_file', 'configs/lio/velodyne.yaml']));"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m);"
             "assert not any(m.startswith('pointcloud_slam_tpu.') or m == 'pointcloud_slam_tpu' for m in sys.modules);"
@@ -106,6 +109,9 @@ CONSTRUCTORS = {
         n_frames=1, n_pts=100, **kw)[2][0][0].pts,
     "convert.nav_state_from_numpy": lambda **kw: convert.nav_state_from_numpy(
         jax.tree.map(np.asarray, jst.identity()), **kw).pos,
+    "liosam.backend.create": lambda **kw: tbk.create(tbk.BackendConfig(max_keyframes=4, max_loops=2), **kw).R,
+    "liosam.slam.create_state": lambda **kw: tslam.create_state(
+        tslam.SLAMConfig(backend=tbk.BackendConfig(max_keyframes=4, max_loops=2)), **kw).kf_surf,
 }
 
 
@@ -126,12 +132,15 @@ def test_constructors_default_to_the_gpu(name):
 def test_align_bench_app_runs_on_cpu():
     """apps/align_bench_torch.py at a small size on the CPU: every ported
     row runs and reports a finite fitness; the registrations land within
-    0.1 m of the known offset."""
+    0.1 m of the known offset, the NDT rows within 0.15 m (the JAX
+    package's D2D gate; on these 3,000-point clouds JAX's own P2D lands
+    0.1436 m off, and the port's within 1e-6 m of it)."""
     r = _run(["apps/align_bench_torch.py", "--device", "cpu", "--n_points", "3000", "--reps", "1"], timeout=300)
     assert r.returncode == 0, r.stderr
     table = r.stdout.split("\n\n")[-1].strip().splitlines()[1:]
     names = [ln[:26].strip() for ln in table]
-    assert names == ["point_to_plane_icp", "vgicp (knn cov)", "vgicp (exact/pallas cov)", "gicp"], names
-    for ln in table:
-        assert float(ln.split("terr=")[1]) < 0.1, ln
-    assert "cov: exact knn" in r.stdout and "cov: voxel knn" in r.stdout
+    assert names == ["point_to_plane_icp", "ndt_p2d", "ndt_d2d", "vgicp (knn cov)", "vgicp (rbf cov)",
+                     "vgicp (exact/pallas cov)", "gicp"], names
+    for name, ln in zip(names, table):
+        assert float(ln.split("terr=")[1]) < (0.15 if name.startswith("ndt") else 0.1), ln
+    assert "cov: exact knn" in r.stdout and "cov: voxel knn" in r.stdout and "cov: rbf" in r.stdout

@@ -209,3 +209,127 @@ def test_nearest_neighbor_wrapper_rejects(cuda):
         bf_knn.nearest_neighbor(q, q.cpu())                      # devices differ
     with pytest.raises(ValueError):
         bf_knn.nearest_neighbor(torch.rand(4, 10, device=cuda), q)  # not (3, n)
+
+
+# ---- the SLAM slice on the card against the port on the CPU ----
+
+def _to(tree, dev):
+    """A NamedTuple of tensors (nested) on another device."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(v, dev) for v in tree))
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
+def test_ndt_align_on_card_matches_cpu(cuda):
+    """NDT P2D and D2D on the same target (built on the CPU, copied): the card's
+    pose within 1e-4 m / 1e-4 of the CPU's, the same iterations."""
+    from pointcloud_slam_tpu_torch import register
+    from pointcloud_slam_tpu_torch.io import synthetic
+
+    world = synthetic.make_room_cloud(6000, seed=0)
+    R, t = synthetic.random_pose(seed=1, rot_scale=0.04, trans_scale=0.3)
+    src = torch.from_numpy(np.ascontiguousarray(((world - t) @ R).astype(np.float32).T))
+    cfg = register.NDTConfig(resolution=1.0)
+    gc, g = register.ndt.build_target(cfg, torch.from_numpy(np.ascontiguousarray(world.T)), capacity=1 << 14)
+    sm, sc, sv, _ = register.ndt.voxelize_source(cfg, src)
+    for name, fn in (("p2d", lambda g_, d: register.ndt.align(gc, g_, src.to(d), cfg=cfg)),
+                     ("d2d", lambda g_, d: register.ndt.align_d2d(gc, g_, sm.to(d), sc.to(d), sv.to(d), cfg=cfg))):
+        rc, rg = fn(g, "cpu"), fn(_to(g, cuda), cuda)
+        np.testing.assert_allclose(rg.pose.t.cpu().numpy(), rc.pose.t.numpy(), atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(rg.pose.R.cpu().numpy(), rc.pose.R.numpy(), atol=1e-4, err_msg=name)
+        assert int(rg.iterations) == int(rc.iterations), name
+        assert np.linalg.norm(rg.pose.t.cpu().numpy() - t) < 0.15
+
+
+def test_backend_optimize_on_card_matches_cpu(cuda):
+    """Full and window GN solves of a 48-node graph (odometry with drift, IMU
+    factors on 10 slots, a loop, a GPS prior) on the card and on the CPU:
+    positions within 1e-3 m, rotations within 1e-3 (index_add_ on the card
+    sums with atomics, in no fixed order; cuSOLVER against LAPACK)."""
+    from pointcloud_slam_tpu_torch.geom import so3
+    from pointcloud_slam_tpu_torch.models.lio import preintegration as pre
+    from pointcloud_slam_tpu_torch.models.liosam import backend as bk
+
+    cfg = bk.BackendConfig(max_keyframes=64, max_loops=4, gn_iterations=3, pcg_iterations=24)
+    g = bk.create(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    M = 20
+    acc = torch.from_numpy((rng.normal(0, 0.5, (M, 3)) + [0, 0, 9.81]).astype(np.float32))
+    gyro = torch.from_numpy(rng.normal(0, 0.3, (M, 3)).astype(np.float32))
+    pim = pre.preintegrate(acc, gyro, torch.full((M,), 0.005), torch.ones(M, dtype=torch.bool),
+                           torch.full((3,), 0.01), torch.zeros(3))
+    R, tpos = torch.eye(3), torch.zeros(3)
+    step = so3.exp(torch.tensor([0.0, 0.0, 2 * np.pi / 48 + 0.004]))
+    for k in range(48):
+        if k:
+            tpos = tpos + R @ torch.tensor([0.5, 0.0, 0.0])
+            R = R @ step
+        g = bk.add_keyframe(cfg, g, R, tpos, pim=pim if 5 <= k < 15 else None)
+    g = bk.add_loop(cfg, g, 47, 0, torch.eye(3), torch.tensor([0.3, -0.2, 0.0]), torch.full((6,), 1e3),
+                    robust=False)
+    g = bk.add_gps(g, 20, g.t[20] + 0.1, torch.tensor([1e2, 1e2, 1e-6]))
+    for name, fn in (("optimize", lambda g_: bk.optimize(cfg, g_)),
+                     ("window", lambda g_: bk.optimize_window(cfg, g_, window=16))):
+        oc, og = fn(g), fn(_to(g, cuda))
+        np.testing.assert_allclose(og.t.cpu().numpy(), oc.t.numpy(), atol=1e-3, err_msg=name)
+        np.testing.assert_allclose(og.R.cpu().numpy(), oc.R.numpy(), atol=1e-3, err_msg=name)
+        assert bool(torch.isfinite(og.t).all()), name
+
+
+def test_slam_step_on_card_matches_cpu(cuda):
+    """tests/test_slam.py's out-and-back path (11 frames) through slam_step on
+    the card and on the CPU: the same keyframe and loop decisions and the
+    same host reads on every frame, poses within 1 cm; on the card no frame
+    after the first synchronizes more than its counted reads, the `eigh` of
+    scan-to-map (one a search round and the final `eigvalsh`) and an NDT
+    verification's `eigvalsh`. (The first frame also copies the cached
+    stencil tables to the card.)"""
+    import warnings
+
+    from pointcloud_slam_tpu_torch import register
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.models.liosam import backend as bk
+    from pointcloud_slam_tpu_torch.models.liosam import scan2map as s2m
+    from pointcloud_slam_tpu_torch.models.liosam import scancontext as sc
+    from pointcloud_slam_tpu_torch.models.liosam import slam
+
+    cfg = slam.SLAMConfig(
+        backend=bk.BackendConfig(max_keyframes=32, max_loops=4, keyframe_dist_thresh=0.4, gn_iterations=3,
+                                 pcg_iterations=30),
+        n_corner=256, n_surf=2048,
+        scan2map=s2m.Scan2MapConfig(solver=register.SolverConfig(max_iterations=8), degeneracy_eig=1.0),
+        loop_icp=register.ICPConfig(solver=register.SolverConfig(max_iterations=6)),
+        scancontext=sc.ScanContextConfig(exclude_recent=3, dist_threshold=0.35))
+    warm = min(cfg.scan2map.warmup_searches, cfg.scan2map.solver.max_iterations)
+    n_eigh = warm + -(-(cfg.scan2map.solver.max_iterations - warm) // cfg.scan2map.search_every) + 1
+    corners_w, surfs_w = synthetic.make_feature_world(seed=2)
+    states = {d: slam.create_state(cfg, device=d) for d in ("cpu", cuda)}
+    loops = 0
+    for k, x in enumerate([0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 2.0, 1.5, 1.0, 0.5, 0.02]):
+        t = np.array([x, 0.0, 1.0], np.float32)
+        c, cm = synthetic.take_scan(corners_w, np.eye(3, dtype=np.float32), t, 256, seed=k)
+        s, sm = synthetic.take_scan(surfs_w, np.eye(3, dtype=np.float32), t, 2048, seed=100 + k)
+        outs, reads = {}, {}
+        for d in states:
+            args = [torch.from_numpy(np.ascontiguousarray(a.T) if a.ndim == 2 else a).to(d) for a in (c, cm, s, sm)]
+            r0 = slam.slam_step.host_reads
+            on_card = torch.device(d).type == "cuda"
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    states[d], outs[d] = slam.slam_step(cfg, states[d], *args)
+                finally:
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode("default")
+            reads[d] = slam.slam_step.host_reads - r0
+            if on_card and k > 0:
+                syncs = sum("synchroniz" in str(w.message) for w in caught)
+                assert syncs <= reads[d] + n_eigh + 1, (k, syncs, reads[d], n_eigh)
+        oc, og = outs["cpu"], outs[cuda]
+        assert reads["cpu"] == reads[cuda], k
+        assert bool(og.is_keyframe) == bool(oc.is_keyframe) and int(og.loop_index) == int(oc.loop_index), k
+        np.testing.assert_allclose(og.pose.t.cpu().numpy(), oc.pose.t.numpy(), atol=1e-2, err_msg=str(k))
+        loops += int(og.loop_detected)
+    assert loops >= 1

@@ -224,3 +224,57 @@ def test_plane_fit_degenerate(rng):
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
     assert np.all(np.isfinite(ct.numpy()))
     _close(cj, ct, atol=1e-3)   # the near-singular solves amplify rounding
+
+
+def test_line_fit(rng):
+    """LOAM line fit on 5-point blocks along random lines (some masked
+    short): validity equal where l_max / l_mid is clear of the 3x ratio,
+    centres at 1e-5 and directions at 1e-4 up to sign."""
+    n, k = 300, 5
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    c = rng.uniform(-5, 5, size=(n, 3))
+    s = rng.uniform(-1, 1, size=(n, k))
+    pts = c[:, None] + s[..., None] * d[:, None] + rng.normal(scale=rng.uniform(0.001, 0.4, (n, 1, 1)), size=(n, k, 3))
+    pts = pts.transpose(2, 1, 0).astype(np.float32)                        # (3, k, n)
+    mask = np.arange(k)[:, None] < rng.integers(2, k + 1, size=n)[None, :]
+    (cj, dj, okj), (ct, dt, okt) = _both(jfit.line_fit, tfit.line_fit, pts, mask)
+    vals = np.asarray(jfit.eigh3x3(jnp.asarray(np.einsum("akn,bkn->nab", pts - pts.mean(1, keepdims=True),
+                                                          pts - pts.mean(1, keepdims=True))))[0])
+    clear = np.abs(vals[:, 2] / np.maximum(vals[:, 1], 1e-12) - 3.0) > 0.05
+    np.testing.assert_array_equal(okt.numpy()[clear], np.asarray(okj)[clear])
+    _close(cj, ct)
+    dj, dt = np.asarray(dj), dt.numpy()
+    sign = np.sign(np.sum(dj * dt, axis=0))
+    ok = np.asarray(okj)
+    np.testing.assert_allclose((dt * sign)[:, ok], dj[:, ok], atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["normalize", "from_quat", "from_euler", "to_euler"])
+def test_so3_conversions(rng, name):
+    """so3 normalize (of rotations perturbed by 1e-3), from_quat (of
+    unnormalized quaternions), from_euler and to_euler (pitch within +-1.4
+    rad, away from gimbal lock) against JAX at 1e-5."""
+    w = _rotvecs(rng)
+    R = np.asarray(jso3.exp(jnp.asarray(w)))
+    arg = {"normalize": (R + rng.normal(scale=1e-3, size=R.shape)).astype(np.float32),
+           "from_quat": rng.normal(size=(64, 4)).astype(np.float32),
+           "from_euler": rng.uniform([-3, -1.4, -3], [3, 1.4, 3], size=(64, 3)).astype(np.float32),
+           "to_euler": np.asarray(jso3.from_euler(jnp.asarray(rng.uniform([-3, -1.4, -3], [3, 1.4, 3],
+                                                                            size=(64, 3)).astype(np.float32))))}[name]
+    a, b = _both(getattr(jso3, name), getattr(tso3, name), arg)
+    _close(a, b)
+
+
+def test_se3_log_boxminus_matrix(rng):
+    """se3 log (rotation angles below 2.5 rad), boxminus, from_matrix and
+    Pose.matrix against JAX: 1e-5, translations (O(1-3) m) 1e-4."""
+    xi = np.concatenate([_rotvecs(rng, 16)[:12] * 0.5, rng.normal(size=(12, 3)).astype(np.float32)], axis=1)
+    pj, pt = _both(jse3.exp, tse3.exp, xi)
+    _close(jse3.log(pj), tse3.log(pt), atol=1e-4)
+    qj, qt = _both(jse3.exp, tse3.exp, np.roll(xi, 1, axis=0))
+    _close(jse3.boxminus(pj, qj), tse3.boxminus(pt, qt), atol=1e-4)
+    _close(pj.matrix, pt.matrix)
+    fj, ft = jse3.from_matrix(pj.matrix), tse3.from_matrix(pt.matrix)
+    _close(fj.R, ft.R)
+    _close(fj.t, ft.t)
