@@ -48,6 +48,24 @@ kernel on them against its plain PyTorch version. Phases:
      peak memory; then apps/run_slam_offline_torch.py --synthetic 40. No
      hand-written kernel lies on this path (the local maps' k-NN is the
      voxel hash's): K1 and K2 are counted and must stay at 0
+ 10. prior-map localization at bench.py config 8's full shape (bench.py:
+     590-694: the feature world, 64 frames of 512 corner / 2,048 surface
+     points on a 3 m circle, constant-velocity prediction, 6 GN
+     iterations): frames/s, per-frame p50/p99, launches, host syncs and GPU
+     busy a frame, peak memory, max error, lost frames; the teleport
+     relocalization and its latency; NDT localization at run_localization's
+     defaults (8,192 points against the 60,000-point room, baked target,
+     16 frames) with the same fields; apps/run_localization_torch.py
+     --synthetic 16 with --method ndt and loam. Gates: error < 0.10 m and 0
+     lost (LOAM chain, NDT chain, both apps), relocalization triggered and
+     recovered within 0.05 m. K1 and K2 must stay at 0 launches
+ 11. recorded data: tools/make_dataset_torch.py writes a 20-frame LIO
+     dataset and its bag under build/; the mapping app's directory, native
+     bag and Python bag sources must build the same frames; its three
+     replays, the SLAM app on the bag and the localization app on the
+     dataset against the mapped PCD must run to finite trajectories (their
+     gaps and errors against ground truth reported); the C++ oracle's
+     esti_plane beside plane_fit on the card
 
 Every timed K1 / K2 shape prints what the wrapper's plan ran it with: the
 instance (list length), R (queries per thread, always 1) and S (database
@@ -793,6 +811,340 @@ def run_slam_shape(cfg, dev, shape, n_pre, n_frames, world, profiled_per_class=2
     return res, errs
 
 
+LOC_FRAMES = 64            # bench.py config 8's chain length (bench.py:605)
+LOC_NDT_FRAMES = 16        # run_localization's synthetic replay, 16 frames
+LOC_NDT_POINTS = 8192      # run_localization's --n_points default
+REPLAY_MAX_ERR_M = 0.05    # each recorded replay's LIO trajectory against gt_traj.txt
+
+
+def loc_config():
+    """bench.py config 8's LocalizationConfig (bench.py:610-612): 6 GN
+    iterations, degeneracy threshold 1.0, the default corner / surface grids."""
+    from pointcloud_slam_tpu_torch import register
+    from pointcloud_slam_tpu_torch.models.liosam import scan2map as s2m
+    from pointcloud_slam_tpu_torch.models.localization import pipeline as loc
+
+    return loc.LocalizationConfig(scan2map=s2m.Scan2MapConfig(solver=register.SolverConfig(max_iterations=6),
+                                                             degeneracy_eig=1.0))
+
+
+def per_frame_fields(lat_ms, n_frames, wall_s, prof, syncs):
+    """The phase fields of a sequential chain: frames/s of an unsynchronized
+    pass, p50/p99 of a pass synchronized frame by frame, and per frame from
+    the profiled and sync-counted frames: launches, GPU busy, idle share
+    (busy against the p50), host syncs."""
+    p50 = float(np.percentile(lat_ms, 50))
+    busy = float(np.mean([p[1] for p in prof]))
+    return dict(frames=n_frames, frames_per_s=n_frames / wall_s, p50_ms=p50, p99_ms=float(np.percentile(lat_ms, 99)),
+                launches_per_frame=float(np.mean([p[0] for p in prof])), gpu_busy_ms_per_frame=busy,
+                idle_share=1 - busy / p50, profiled_frames=len(prof),
+                top_device_ms=sorted(([n_, t] for p in prof for n_, t in p[3]), key=lambda e: -e[1])[:3],
+                host_syncs_per_frame=float(np.mean(syncs)))
+
+
+def run_chain(step, frames, dev):
+    """A sequential chain three times from its start: a warm-up pass, a pass
+    synchronized after each frame (latencies), an unsynchronized pass (wall).
+    Returns (results of the last pass, latencies ms, wall s, peak GiB)."""
+    import torch
+
+    step(frames, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    step(frames, lat)
+    t0 = time.perf_counter()
+    outs = step(frames, None)
+    torch.cuda.synchronize()
+    return outs, lat, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def run_localization(dev):
+    """bench.py config 8 (bench.py:590-694, nothing cut): the feature world
+    (seed 3) in corner and surface maps, 64 frames of 512 corner and 2,048
+    surface points along a 3 m circle, each matched by localize_loam from
+    the constant-velocity prediction (bench.py:636-645); then the teleport
+    relocalization (bench.py:666-684). K1 and K2 counted: none on this path."""
+    import torch
+
+    from pointcloud_slam_tpu_torch import ops
+    from pointcloud_slam_tpu_torch.geom import se3
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.models.localization import pipeline as loc
+    from pointcloud_slam_tpu_torch.ops import bf_knn
+
+    cfg = loc_config()
+    corners_w, surfs_w = synthetic.make_feature_world(seed=3)
+    maps = []
+    for cloud, g in ((corners_w, cfg.scan2map.corner_grid), (surfs_w, cfg.scan2map.surf_grid)):
+        pts = torch.from_numpy(np.ascontiguousarray(cloud.T.astype(np.float32))).to(dev)
+        maps.append(ops.insert(g, ops.create(g, device=dev), pts, torch.ones(pts.shape[1], dtype=torch.bool,
+                                                                                  device=dev)))
+    frames, gts = [], []
+    eye = np.eye(3, dtype=np.float32)
+    for k in range(LOC_FRAMES):
+        ang = 2 * np.pi * k / LOC_FRAMES
+        t = np.array([3.0 * np.sin(ang), 3.0 * (1 - np.cos(ang)), 1.0], np.float32)
+        c, cm = synthetic.take_scan(corners_w, eye, t, 512, seed=k)
+        s, sm = synthetic.take_scan(surfs_w, eye, t, 2048, seed=100 + k)
+        frames.append(tuple(torch.from_numpy(np.ascontiguousarray(a.T) if a.ndim == 2 else a).to(dev)
+                            for a in (c, cm, s, sm)))
+        gts.append(t)
+    gts = np.stack(gts)
+
+    def match(pose, prev_t, f):
+        return loc.localize_loam(cfg, None, *maps, *f, se3.Pose(pose.R, pose.t + (pose.t - prev_t)))
+
+    def chain(fs, lat):
+        p0 = se3.Pose(torch.eye(3, device=dev), torch.from_numpy(gts[0]).to(dev))
+        pose, prev_t, outs = p0, p0.t, []
+        for f in fs:
+            t1 = time.perf_counter()
+            res = match(pose, prev_t, f)
+            if lat is not None:
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t1) * 1e3)
+            pose, prev_t = res.pose, pose.t
+            outs.append(res)
+        return outs
+
+    bf_knn.knn.launches = bf_knn.nearest_neighbor.launches = 0
+    outs, lat, wall, peak = run_chain(chain, frames, dev)
+    ts = torch.stack([o.pose.t for o in outs]).cpu().numpy()
+    lost = int(torch.stack([o.lost for o in outs]).sum())
+    errs = np.linalg.norm(ts - gts, axis=1)
+    check(np.isfinite(ts).all(), "localization: non-finite poses")
+    prof, syncs = [], []
+    for k in (20, 21):
+        args = (outs[k - 1].pose, outs[k - 2].pose.t, frames[k])
+        prof.append(profile_launches(lambda: match(*args)))
+        syncs.append(count_syncs(lambda: match(*args))[1])
+    res = dict(per_frame_fields(lat, LOC_FRAMES, wall, prof, syncs), peak_mem_gib=peak, max_err_m=float(errs.max()),
+               mean_err_m=float(errs.mean()), lost_frames=lost,
+               fitness_max=float(torch.stack([o.fitness for o in outs]).max()))
+
+    # relocalization: a teleported guess (+5, +5, +2 m) is lost, the fallback
+    # pose (the GPS / initialPose role) re-matches; latency of the sequence
+    k = 7
+    bad = se3.Pose(torch.eye(3, device=dev), torch.from_numpy(gts[k] + np.array([5.0, 5.0, 2.0], np.float32)).to(dev))
+    fb = se3.Pose(torch.eye(3, device=dev), torch.from_numpy(gts[k]).to(dev))
+
+    def recover():
+        r1 = loc.localize_loam(cfg, None, *maps, *frames[k], bad)
+        r2 = loc.localize_loam(cfg, None, *maps, *frames[k], loc.relocalize(r1, fb))
+        return r1.lost, r2.lost, r2.pose.t
+
+    reloc_ms, (l1, l2, t2) = timed(recover, 3)
+    res.update(reloc_triggered=bool(l1), reloc_recovered=not bool(l2), reloc_err_m=float(np.linalg.norm(
+        t2.cpu().numpy() - gts[k])), reloc_latency_ms=reloc_ms)
+    res["k1_k2_launches"] = [bf_knn.knn.launches, bf_knn.nearest_neighbor.launches]
+    check(res["k1_k2_launches"] == [0, 0], f"localization launched K1/K2 {res['k1_k2_launches']} times")
+    return res
+
+
+def run_localization_ndt(dev):
+    """run_localization's NDT mode at its defaults (apps/run_localization.py:
+    224-235): 16 frames of 8,192 points of the 60,000-point room seen from
+    (0.1 k, 0.05 k, 0), each matched from the previous pose against the
+    baked NDT target (capacity 1<<15) with the fitness score on the point
+    map; the loss fallback (relocalize) in the chain as in the app. K1 and
+    K2 counted: none on this path."""
+    import torch
+
+    from pointcloud_slam_tpu_torch import register
+    from pointcloud_slam_tpu_torch.geom import se3
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.models.localization import pipeline as loc
+    from pointcloud_slam_tpu_torch.ops import bf_knn
+
+    cfg = loc.LocalizationConfig(method="ndt")
+    bf_knn.knn.launches = bf_knn.nearest_neighbor.launches = 0
+    world = synthetic.make_room_cloud(60_000, seed=0)
+    w = torch.from_numpy(np.ascontiguousarray(world.T)).to(dev)
+    t0 = time.perf_counter()
+    grid_cfg, point_map = register.build_target_map(w, grid_cfg=cfg.scan2map.surf_grid)
+    ndt_grid, ndt_map = register.ndt.build_target(cfg.ndt, w, capacity=1 << 15, baked=True)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(1)
+    scans, gts = [], []
+    for k in range(LOC_NDT_FRAMES):
+        t = np.array([0.1 * k, 0.05 * k, 0.0], np.float32)
+        sel = rng.choice(len(world), LOC_NDT_POINTS, replace=False)
+        scans.append(torch.from_numpy(np.ascontiguousarray((world[sel] - t).T)).to(dev))
+        gts.append(t)
+    gts = np.stack(gts)
+    mask = torch.ones(LOC_NDT_POINTS, dtype=torch.bool, device=dev)
+    init = se3.identity(device=dev)
+
+    def match(pose, scan):
+        return loc.localize_ndt(cfg, ndt_grid, ndt_map, grid_cfg, point_map, scan, mask, pose)
+
+    def chain(fs, lat):
+        pose, outs = init, []
+        for scan in fs:
+            t1 = time.perf_counter()
+            res = match(pose, scan)
+            pose = loc.relocalize(res, init)
+            if lat is not None:
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t1) * 1e3)
+            outs.append(res)
+        return outs
+
+    outs, lat, wall, peak = run_chain(chain, scans, dev)
+    ts = torch.stack([o.pose.t for o in outs]).cpu().numpy()
+    errs = np.linalg.norm(ts - gts, axis=1)
+    check(np.isfinite(ts).all(), "NDT localization: non-finite poses")
+    prof, syncs = [], []
+    for k in (8, 9):
+        args = (outs[k - 1].pose, scans[k])
+        prof.append(profile_launches(lambda: match(*args)))
+        syncs.append(count_syncs(lambda: match(*args))[1])
+    k1_k2 = [bf_knn.knn.launches, bf_knn.nearest_neighbor.launches]
+    check(k1_k2 == [0, 0], f"NDT localization launched K1/K2 {k1_k2} times")
+    return dict(per_frame_fields(lat, LOC_NDT_FRAMES, wall, prof, syncs), points=LOC_NDT_POINTS, map_build_ms=build_ms,
+                peak_mem_gib=peak, max_err_m=float(errs.max()),
+                lost_frames=int(torch.stack([o.lost for o in outs]).sum()),
+                max_eigen_min=float(torch.stack([o.max_eigen for o in outs]).min()), k1_k2_launches=k1_k2)
+
+
+def run_apps(commands, timeout):
+    """Start every command at once (each is an app in its own process, and
+    each mostly waits on its host); {name: (rc, stdout, stderr)}."""
+    procs = {name: subprocess.Popen([sys.executable, *cmd], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True) for name, cmd in commands.items()}
+    out = {}
+    try:
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=timeout)
+            out[name] = (p.returncode, so, se)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, (rc, so, se) in out.items():
+        check(rc == 0, f"{name} failed ({rc}):\n{so}\n{se}")
+    return out
+
+
+def lost_count(stdout):
+    return int(stdout.split("lost: ")[1].split()[0])
+
+
+def load_app(rel, name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare_replays(dev, seq):
+    """The mapping app's three frame sources on the recorded dataset: the
+    directory, the bag by the native reader and by the Python one. Masks
+    equal; points within 1e-5 m and times within 1e-6 s (the bag holds point
+    offsets in whole ns), as tests/test_rosbag.py:242-278 holds them.
+    Returns the largest difference of each field."""
+    import torch
+
+    app = load_app("apps/run_mapping_offline_torch.py", "smoke_mapping_app")
+    args = app.parse_args(["--data_dir", seq, "--bag_file", os.path.join(seq, "data.bag"), "--bag_reader", "native"])
+    sources = {"dir": list(app.frames_from_dir(args, dev)), "native": list(app.frames_from_bag(args, dev))}
+    args.bag_reader = "python"
+    sources["python"] = list(app.frames_from_bag(args, dev))
+    diffs = {}
+    for name in ("native", "python"):
+        check(len(sources[name]) == len(sources["dir"]) > 0, f"replay {name}: {len(sources[name])} frames")
+        for (fd, td), (fb, tb) in zip(sources["dir"], sources[name]):
+            check(abs(td - tb) < 1e-6, f"replay {name}: stamps {td} / {tb}")
+            for field in fd._fields:
+                a, b = getattr(fd, field), getattr(fb, field)
+                if a.dtype == torch.bool:
+                    check(bool((a == b).all()), f"replay {name}: {field} differ")
+                    continue
+                d = float((a - b).abs().max())
+                check(d <= (1e-5 if field == "pts" else 1e-6), f"replay {name}: {field} differ by {d}")
+                diffs[f"{name}_{field}"] = max(d, diffs.get(f"{name}_{field}", 0.0))
+    return dict(frames=len(sources["dir"]), max_diff=diffs)
+
+
+def oracle_plane_fit(dev):
+    """The C++ oracle's esti_plane on the host beside the port's plane_fit on
+    card tensors: 512 noisy 5-point patches; max |coefficient difference|
+    (sign-aligned) over the patches both call valid, and the flags agreeing."""
+    import torch
+
+    from pointcloud_slam_tpu_torch import native
+    from pointcloud_slam_tpu_torch.geom import fit
+
+    rng = np.random.default_rng(0)
+    n = 512
+    pts = rng.normal(size=(n, 5, 3))
+    pts[..., 2] = pts[..., :2] @ [0.1, -0.2] + 1.5 + rng.normal(scale=0.01, size=(n, 5))
+    coef, ok = fit.plane_fit(torch.from_numpy(pts.transpose(2, 1, 0).astype(np.float32)).to(dev),
+                             torch.ones((5, n), dtype=torch.bool, device=dev), 0.1, 3)
+    coef, ok = coef.cpu().numpy(), ok.cpu().numpy()
+    err, agree = 0.0, 0
+    for i in range(n):
+        c_o, ok_o = native.esti_plane(pts[i], threshold=0.1)
+        agree += ok_o == bool(ok[i])
+        if ok_o and ok[i]:
+            err = max(err, float(np.abs(coef[:, i] - np.sign(coef[:3, i] @ c_o[:3]) * c_o).max()))
+    check(agree == n and err < 5e-4, f"plane_fit vs oracle: {agree}/{n} flags agree, max diff {err}")
+    return dict(patches=n, flags_agree=agree, max_abs_diff=err)
+
+
+def run_recorded(dev, out_dir):
+    """Phase 11: a 20-frame LIO dataset and its bag written by
+    tools/make_dataset_torch.py, the mapping app's three replays of it
+    (frames compared in this process, then the apps run), SLAM on the bag,
+    localization on the dataset against the mapped PCD."""
+    seq = os.path.join(out_dir, "smoke_lio")
+    t0 = time.perf_counter()
+    mk = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "make_dataset_torch.py"), "--out", seq,
+                         "--frames", "20", "--bag"], capture_output=True, text=True, timeout=600, cwd=ROOT)
+    check(mk.returncode == 0, f"make_dataset_torch failed ({mk.returncode}):\n{mk.stdout}\n{mk.stderr}")
+    res = dict(dataset_s=time.perf_counter() - t0, bag_mib=os.path.getsize(os.path.join(seq, "data.bag")) / 2 ** 20)
+    res["frames"] = compare_replays(dev, seq)
+    bag = os.path.join(seq, "data.bag")
+    trajs = {name: os.path.join(out_dir, f"smoke_replay_{name}.txt") for name in ("dir", "native", "python")}
+    map_file = os.path.join(out_dir, "smoke_map.pcd")
+    mapping = os.path.join(ROOT, "apps", "run_mapping_offline_torch.py")
+    apps = run_apps({
+        "dir": [mapping, "--data_dir", seq, "--traj_log_file", trajs["dir"], "--map_file", map_file],
+        "native": [mapping, "--bag_file", bag, "--bag_reader", "native", "--traj_log_file", trajs["native"]],
+        "python": [mapping, "--bag_file", bag, "--bag_reader", "python", "--traj_log_file", trajs["python"]],
+        "slam": [os.path.join(ROOT, "apps", "run_slam_offline_torch.py"), "--bag_file", bag, "--out_dir",
+                 os.path.join(out_dir, "smoke_slam_bag")]}, timeout=600)
+    # each replay is held to the ground truth, not to the others within 1e-3 m:
+    # the three sources' point times differ by up to one float32 ulp, which
+    # can make the update's convergence test (1e-3 a state dimension) stop an
+    # iteration earlier or later; the maps then part and the replays land
+    # millimetres apart, the JAX package's replays of the same files too
+    # (ROADMAP.md §3)
+    rows = {name: np.loadtxt(path) for name, path in trajs.items()}
+    gt = np.loadtxt(os.path.join(seq, "gt_traj.txt"))
+    for name, r in rows.items():
+        check(r.shape == (20, 8) and np.isfinite(r).all(), f"replay {name}: trajectory {r.shape}")
+    err = {name: float(np.linalg.norm(r[:, 1:4] - gt[:, 1:4], axis=1).max()) for name, r in rows.items()}
+    check(max(err.values()) < REPLAY_MAX_ERR_M, f"replays' max error against ground truth {err} m "
+                                                f"(gate: < {REPLAY_MAX_ERR_M} m)")
+    gap = {name: float(np.abs(rows[name][:, 1:4] - rows["dir"][:, 1:4]).max()) for name in ("native", "python")}
+    slam_rows = np.loadtxt(os.path.join(out_dir, "smoke_slam_bag", "traj_tum.txt"))
+    check(slam_rows.shape == (20, 8) and np.isfinite(slam_rows).all(), "SLAM bag replay: trajectory")
+    res.update(replay_err_vs_gt_m=err, replay_traj_gap_m=gap,
+               apps={name: so.strip().splitlines()[0] for name, (_, so, _) in apps.items()})
+    loc_app = run_apps({"localization": [os.path.join(ROOT, "apps", "run_localization_torch.py"), "--map_pcd",
+                                         map_file, "--data_dir", seq, "--out_dir",
+                                         os.path.join(out_dir, "smoke_loc_recorded")]}, timeout=600)
+    res["apps"]["localization"] = loc_app["localization"][1].strip().splitlines()[0]
+    res["plane_fit_vs_oracle"] = oracle_plane_fit(dev)
+    return res
+
+
 def main():
     import torch
 
@@ -940,8 +1292,30 @@ def main():
                          capture_output=True, text=True, timeout=600, cwd=ROOT)
     check(app.returncode == 0, f"SLAM app failed ({app.returncode}):\n{app.stdout}\n{app.stderr}")
     phase(9, "SLAM app", rc=app.returncode, out=app.stdout.strip().splitlines()[0])
-    check("jax" not in sys.modules, "the port imported jax")
-    phase(10, "done", wall_s=time.perf_counter() - t_script)
+
+    # ---- 10. prior-map localization at bench.py config 8's full shape ----
+    loam = run_localization(dev)
+    phase(10, "localization LOAM (config 8: 64 frames, 512 + 2048 points)", **loam)
+    check(loam["max_err_m"] < 0.10 and loam["lost_frames"] == 0,
+          f"localization: max error {loam['max_err_m']} m, {loam['lost_frames']} lost (gates: < 0.10 m, 0)")
+    check(loam["reloc_triggered"] and loam["reloc_recovered"] and loam["reloc_err_m"] < 0.05,
+          f"relocalization: {loam['reloc_triggered']}, {loam['reloc_recovered']}, {loam['reloc_err_m']} m")
+    ndt_loc = run_localization_ndt(dev)
+    phase(10, "localization NDT (8192 points, 60k-point room, 16 frames)", **ndt_loc)
+    check(ndt_loc["max_err_m"] < 0.10 and ndt_loc["lost_frames"] == 0,
+          f"NDT localization: max error {ndt_loc['max_err_m']} m, {ndt_loc['lost_frames']} lost (gates: < 0.10 m, 0)")
+    loc_app = os.path.join(ROOT, "apps", "run_localization_torch.py")
+    apps = run_apps({m: [loc_app, "--synthetic", "16", "--method", m, "--out_dir", str(_cuda.BUILD_DIR / f"smoke_loc_{m}")]
+                     for m in ("ndt", "loam")}, timeout=600)
+    lost = {m: lost_count(so) for m, (_, so, _) in apps.items()}
+    phase(10, "localization app", lost=lost, out={m: so.strip().splitlines()[0] for m, (_, so, _) in apps.items()})
+    check(lost == {"ndt": 0, "loam": 0}, f"localization app lost frames: {lost}")
+
+    # ---- 11. recorded data: dataset + bag, three replays, SLAM and localization on them ----
+    phase(11, "recorded data", **run_recorded(dev, str(_cuda.BUILD_DIR)))
+    check("jax" not in sys.modules and not any(m.split(".")[0] == "pointcloud_slam_tpu" for m in sys.modules),
+          "the port imported jax or the JAX package")
+    phase(12, "done", wall_s=time.perf_counter() - t_script)
 
     k1_bound, k1_bound_by = knn_bound_ms(pts.shape[1], pts.shape[1], 20)
     print(json.dumps({"kernels": [

@@ -8,7 +8,7 @@ registration targets: a GICP target (voxel map + flat covariance
 attributes) and plain or stencil-baked Gaussian voxel maps, so that both
 sides can align against the same target; and SLAM state: preintegrated IMU
 factors, pose graphs and whole `SLAMState`s, so that both packages can
-start from one populated state. `to_numpy` goes back: the port's
+start from one populated state; and localization results. `to_numpy` goes back: the port's
 NamedTuples with numpy leaves in the JAX package's dtypes (fingerprint rows
 back to uint32, host flags and counters back to 0-d arrays), so both sides'
 states compare leaf by leaf.
@@ -25,6 +25,7 @@ from .models.lio.pipeline import LIOFrame, LIOState
 from .models.lio.preintegration import PreintegratedImu
 from .models.liosam.backend import PoseGraph
 from .models.liosam.slam import SLAMState
+from .models.localization.pipeline import LocalizationResult
 from .ops.gaussian_grid import BakedGaussianMap, GaussianVoxelMap
 from .ops.voxel_grid import VoxelHashMap
 
@@ -104,6 +105,12 @@ def slam_state_from_numpy(s, device="cuda") -> SLAMState:
     fields = dict(graph=pose_graph_from_numpy(s.graph, device), corner_map=grid_from_numpy(s.corner_map, device),
                   surf_map=grid_from_numpy(s.surf_map, device), pose=Pose(_t(s.pose.R, device), _t(s.pose.t, device)))
     return SLAMState(**{f: fields[f] if f in fields else _t(getattr(s, f), device) for f in SLAMState._fields})
+
+
+def localization_result_from_numpy(r, device="cuda") -> LocalizationResult:
+    """A JAX `LocalizationResult` with numpy leaves as the port's."""
+    return LocalizationResult(Pose(_t(r.pose.R, device), _t(r.pose.t, device)),
+                              *(_t(getattr(r, f), device) for f in LocalizationResult._fields[1:]))
 
 
 def to_numpy(obj):

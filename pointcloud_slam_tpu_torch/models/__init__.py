@@ -1,5 +1,5 @@
-"""Models: LIO odometry and LIO-SAM SLAM."""
+"""Models: LIO odometry, LIO-SAM SLAM and prior-map localization."""
 
-from . import liosam, lio
+from . import liosam, lio, localization
 
-__all__ = ["lio", "liosam"]
+__all__ = ["lio", "liosam", "localization"]

@@ -1,8 +1,8 @@
 """LIO odometry: ESKF on the 24-dim manifold, IMU propagation and
-preintegration, the frame step."""
+preintegration, lidar preprocessing, the frame step."""
 
-from . import eskf, imu, preintegration, state
+from . import eskf, imu, preintegration, preprocess, state
 from .pipeline import LIOConfig, LIOFrame, LIOOutput, LIOState, create_state, lio_step, reset
 
-__all__ = ["eskf", "imu", "preintegration", "state", "LIOConfig", "LIOFrame", "LIOOutput", "LIOState",
+__all__ = ["eskf", "imu", "preintegration", "preprocess", "state", "LIOConfig", "LIOFrame", "LIOOutput", "LIOState",
            "create_state", "lio_step", "reset"]

@@ -9,6 +9,12 @@ value (the previous iteration's convergence); the loop reads it once per
 iteration after the first (`UpdateResult.host_syncs` counts the reads) and
 stops as soon as the update is done — the masked iterations after that
 change nothing.
+
+The update's 23x23 algebra (the two inverses of the information form and
+the covariance it leaves) runs in float64, as the reference's esekfom does
+in double: P spans ~8 decades after a few frames (rotation ~1e-8 against an
+unobserved accelerometer bias ~1), so inv(P / R) is past float32's reach,
+and in float32 one frame could wreck the bias estimate and grow P.
 """
 
 from __future__ import annotations
@@ -130,7 +136,8 @@ def update_iterated(
     `ekfom_data.converge` flag gating the NN re-search (laser_mapping.cc:618).
     The first iteration always searches (cache is None there).
     """
-    dev = P0.device
+    dev, dtype, f64 = P0.device, P0.dtype, torch.float64
+    P0d = P0.to(f64)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     do_search = torch.ones((), dtype=torch.bool, device=dev)
     t_conv = torch.zeros((), dtype=torch.int32, device=dev)
@@ -154,12 +161,12 @@ def update_iterated(
         h = h * m
 
         dx = st.boxminus(x, x0)
-        T = _transport(dx, x, x0)
-        dx_new = T @ dx
-        P = T @ P0 @ T.T
+        T = _transport(dx, x, x0).to(f64)
+        dx_new = T @ dx.to(f64)
+        P = T @ P0d @ T.T
 
-        HTH = h_x.T @ h_x  # (12, 12) reduction over points
-        HTh = h_x.T @ h
+        HTH = (h_x.T @ h_x).to(f64)  # (12, 12) reduction over points
+        HTh = (h_x.T @ h).to(f64)
         P_temp = _inv(P / R)
         P_temp[:_H_COLS, :_H_COLS] += HTH
         P_inv = _inv(P_temp)
@@ -168,6 +175,7 @@ def update_iterated(
 
         # dx = K_h + (K_x - I) dx_new, with K_x nonzero only in its first 12 cols
         dx_ = K_h + K_x12 @ dx_new[:_H_COLS] - dx_new
+        dx_ = dx_.to(dtype)
         x_new = st.boxplus(x, dx_)
         x = st.where(done, x, x_new)
         conv = torch.all(torch.abs(dx_) < epsi)
@@ -177,11 +185,11 @@ def update_iterated(
 
         # final covariance at the finishing iteration (esekfom.hpp:1737-1860):
         #   P_final = T2 P T2^T - (T2 K_x)[:, :12] (P T2^T)[:12, :]
-        T2 = _transport(dx_, x_new, x0)
+        T2 = _transport(dx_, x_new, x0).to(f64)
         L = T2 @ P @ T2.T
         P_cols = P @ T2.T
         P_fin = L - (T2 @ K_x12) @ P_cols[:_H_COLS, :]
-        P_fin = 0.5 * (P_fin + P_fin.T)
+        P_fin = (0.5 * (P_fin + P_fin.T)).to(dtype)
         P_out = torch.where(done, P_out, P_fin)
         done = done | finish
     return UpdateResult(x, P_out, t_conv, done, cache, syncs)

@@ -101,3 +101,32 @@ def gather_features(img: RangeImage, mask2d: torch.Tensor):
     """Flatten an image feature mask into an SoA cloud (3, S*H) + mask."""
     pts = torch.stack([img.x.reshape(-1), img.y.reshape(-1), img.z.reshape(-1)], dim=0)
     return pts, mask2d.reshape(-1)
+
+
+def front_end(pcfg, cfg: FeatureConfig, pts: torch.Tensor, mask: torch.Tensor):
+    """Range-image projection + feature extraction of one scan, the
+    imageProjection -> featureExtraction stages the apps run before
+    matching: (corner pts, corner mask, surf pts, surf mask), each over the
+    whole image."""
+    from .projection import project
+
+    img = project(pcfg, pts, mask)
+    fs = extract(cfg, img)
+    cpts, cmask = gather_features(img, fs.edge_mask)
+    spts, smask = gather_features(img, fs.surf_mask)
+    return cpts, cmask, spts, smask
+
+
+def fixed_size(pts: torch.Tensor, mask: torch.Tensor, n: int):
+    """The first n masked points, in index order, as a fixed-shape (3, n)
+    cloud and its mask (zeros past the masked ones); on the device, with no
+    host read. The JAX apps' `fixed` picks the same count with numpy's
+    unstable `argsort(~mask)`, whose choice among more than n masked points
+    may differ."""
+    N = mask.shape[0]
+    if N < n:
+        pts = torch.cat([pts, pts.new_zeros((3, n - N))], dim=1)
+        mask = torch.cat([mask, mask.new_zeros(n - N)])
+    idx = torch.argsort((~mask).to(torch.uint8), stable=True)[:n]
+    m = mask[idx]
+    return torch.where(m, pts[:, idx], 0.0), m

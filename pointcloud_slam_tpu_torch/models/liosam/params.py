@@ -6,8 +6,9 @@ params under the `jueying_slam:` namespace); the shipped per-pipeline YAMLs
 (`config/rslidar.yaml`, `config/hesai.yaml`) use exactly these names.
 Recognized keys map onto ProjectionConfig / FeatureConfig / Scan2MapConfig /
 SLAMConfig / BackendConfig / ScanContextConfig; unknown keys are collected
-and reported. Host-side Python only. `localization_config_from_params`
-comes with the prior-map localization pipeline, which is not ported yet.
+and reported. `localization_config_from_params` does the same for the
+`globalmap_server:` section (localization.cpp's param block). Host-side
+Python only.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 from ... import ops
+from ...register import ndt as ndt_mod
 from ...register import solver as solver_mod
 from . import backend as bk
 from . import features as feat
@@ -135,3 +137,30 @@ def slam_config_from_params(params: Dict[str, Any]) -> Tuple["slam_mod.SLAMConfi
         "unused": sorted(k for k in p if k not in used),
     }
     return cfg, pcfg, fcfg, info
+
+
+def localization_config_from_params(params: Dict[str, Any]):
+    """Build a LocalizationConfig + tile-map settings from the
+    `globalmap_server:` section (localization.cpp's param block)."""
+    from ..localization import pipeline as loc
+
+    g = dict(params.get("globalmap_server", params))
+    used: set = set()
+    method = str(_get(g, used, "Matching_method", "ndt"))
+    ndt_res = float(_get(g, used, "ndt_resolution", 1.0))
+    cfg = loc.LocalizationConfig(method=method, ndt=ndt_mod.NDTConfig(resolution=ndt_res))
+    tiles = {
+        "surf_map_dir": _get(g, used, "globalSurfMap_dirctory", ""),
+        "surf_map_csv": _get(g, used, "globalSurfMap_pcd", ""),
+        "corner_map_dir": _get(g, used, "globalCornerMap_dirctory", ""),
+        "corner_map_csv": _get(g, used, "globalCornerMap_pcd", ""),
+        "area_size": float(_get(g, used, "area_size", 50.0)),
+        "margin": float(_get(g, used, "margin", 100.0)),
+        "update_map_frequency": float(_get(g, used, "updateMapFrequency", 10.0)),
+        "initial_method": _get(g, used, "intialMethod", "human"),
+        "initial_pose": [float(v) for v in _get(g, used, "initialPose", [0.0, 0.0, 0.0])],
+        "optimization_with_gps": bool(_get(g, used, "optimization_with_GPS", False)),
+        "initial_count_num": int(_get(g, used, "initial_count_num", 5)),
+        "unused": sorted(k for k in g if k not in used),
+    }
+    return cfg, tiles

@@ -1,7 +1,8 @@
-"""Trajectory and pose-graph output (copies of `save_trajectory_tum`,
-`save_poses_kitti`, `save_pose_graph_g2o` and `load_pose_graph_g2o` from
-`pointcloud_slam_tpu/utils/checkpoint.py`; the g2o export takes the port's
-PoseGraph)."""
+"""Trajectory, pose-graph and keyframe output (copies of
+`save_trajectory_tum`, `save_poses_kitti`, `save_pose_graph_g2o`,
+`load_pose_graph_g2o`, `save_scd`, `load_scd` and `save_keyframe_artifacts`
+from `pointcloud_slam_tpu/utils/checkpoint.py`; the g2o export takes the
+port's PoseGraph, the keyframe artifacts take tensors or arrays)."""
 
 from __future__ import annotations
 
@@ -98,3 +99,36 @@ def load_pose_graph_g2o(path: str):
                 info = np.array([I[3, 3], I[4, 4], I[5, 5], I[0, 0], I[1, 1], I[2, 2]])
                 edges.append((i, j, np.array(vals[0:3]), np.array(vals[3:7]), info))
     return ids, np.array(ts), np.array(qs), edges
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def save_scd(path: str, descriptor):
+    """ScanContext descriptor as whitespace text (SCManager SCD persistence)."""
+    np.savetxt(path, _np(descriptor), fmt="%.3f")
+
+
+def load_scd(path: str):
+    return np.loadtxt(path, dtype=np.float32)
+
+
+def save_keyframe_artifacts(out_dir: str, k: int, surf_pts, surf_mask, descriptor,
+                            corner_pts=None, corner_mask=None):
+    """Per-keyframe artifact persistence (saveKeyFramesAndFactor
+    mapOptmization.cpp:1868-1880: Scans/*.pcd + SCDs/*.scd).
+
+    Clouds are (3, N) with boolean masks; saved in the keyframe's own frame."""
+    import os
+
+    from ..io import pcd as pcdio
+
+    scans = os.path.join(out_dir, "Scans")
+    scds = os.path.join(out_dir, "SCDs")
+    os.makedirs(scans, exist_ok=True)
+    os.makedirs(scds, exist_ok=True)
+    pcdio.write_pcd(os.path.join(scans, f"{k:06d}.pcd"), _np(surf_pts).T[_np(surf_mask)])
+    save_scd(os.path.join(scds, f"{k:06d}.scd"), descriptor)
+    if corner_pts is not None:
+        pcdio.write_pcd(os.path.join(scans, f"{k:06d}_corner.pcd"), _np(corner_pts).T[_np(corner_mask)])

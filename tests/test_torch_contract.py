@@ -1,8 +1,10 @@
-"""Guards of the port's contract: it never imports JAX, its constructors
-ask for the GPU unless told otherwise (no silent CPU fallback), the GPU
-smoke run refuses to run without a GPU, state carried over from the JAX
-package round-trips exactly, and the torch apps run."""
+"""Guards of the port's contract: it never imports JAX (nor anything of the
+JAX package), its constructors and apps ask for the GPU unless told
+otherwise (no silent CPU fallback), the GPU smoke run refuses to run
+without a GPU, state carried over from the JAX package round-trips exactly,
+and the torch apps run."""
 
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -42,6 +44,11 @@ def test_port_and_app_never_import_jax():
             "import apps.align_bench_torch as bench; bench.parse_args([]);"
             "import apps.run_slam_offline_torch as slam_app; slam_app.build_config(slam_app.parse_args([]));"
             "import pointcloud_slam_tpu_torch.models.liosam;"
+            "import pointcloud_slam_tpu_torch.native, pointcloud_slam_tpu_torch.models.localization;"
+            "from pointcloud_slam_tpu_torch.io import converters, lz4, odom_feed, pcd, rosbag;"
+            "from pointcloud_slam_tpu_torch.models.lio import preprocess;"
+            "import apps.run_localization_torch as loc_app; loc_app.build_config(loc_app.parse_args([]));"
+            "sys.path.insert(0, 'tools'); import make_dataset_torch;"
             "app.build_config(app.parse_args(['--config_file', 'configs/lio/velodyne.yaml']));"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m);"
             "assert not any(m.startswith('pointcloud_slam_tpu.') or m == 'pointcloud_slam_tpu' for m in sys.modules);"
@@ -127,6 +134,21 @@ def test_constructors_default_to_the_gpu(name):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             make()
+
+
+@pytest.mark.parametrize("app", ["run_mapping_offline_torch", "run_slam_offline_torch", "run_localization_torch"])
+def test_apps_default_to_the_gpu(app):
+    """Each replay app runs on the card unless --device says otherwise, and
+    without a GPU it refuses before it reads any input."""
+    path = os.path.join(ROOT, "apps", f"{app}.py")
+    spec = importlib.util.spec_from_file_location(f"{app}_contract", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.parse_args([]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            mod.main(["--synthetic", "1", "--out_dir" if app != "run_mapping_offline_torch" else "--traj_log_file",
+                      os.devnull])
 
 
 def test_align_bench_app_runs_on_cpu():

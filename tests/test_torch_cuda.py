@@ -333,3 +333,143 @@ def test_slam_step_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(og.pose.t.cpu().numpy(), oc.pose.t.numpy(), atol=1e-2, err_msg=str(k))
         loops += int(og.loop_detected)
     assert loops >= 1
+
+
+# ---- prior-map localization on the card against the port on the CPU ----
+
+def _count_syncs(fn):
+    """fn() under the CUDA sync debugger: (its result, synchronizing ops
+    seen). The first switch to "warn" in a process warns once by itself:
+    count a warm-up call first."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_localization_on_card_matches_cpu(cuda):
+    """localize_loam at bench config 8's shape (feature world, 512 corner and
+    2048 surface points, 6 GN iterations) and localize_ndt on the 6,000-point
+    room (2,000 points), each on maps built on the CPU and copied: the same
+    loss and degeneracy flags; NDT's pose within 1e-3 m / 1e-3 of the CPU's
+    and its fitness within 1e-3 relative; LOAM's within 5 mm / 5e-3 and 2 %
+    (its plane-fit flags follow the summation order, ROADMAP §3: 1.4 mm
+    apart on an H100); a LOAM frame with its relocalize synchronizes exactly
+    5 times (scan-to-map's `eigh`s), an NDT frame once (its `eigvalsh`)."""
+    from pointcloud_slam_tpu_torch import ops, register
+    from pointcloud_slam_tpu_torch.geom import se3
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.models.liosam import scan2map as s2m
+    from pointcloud_slam_tpu_torch.models.localization import pipeline as loc
+
+    def close(rc, rg, name, atol, fitness_rtol):
+        dt = float(np.abs(rg.pose.t.cpu().numpy() - rc.pose.t.numpy()).max())
+        dR = float(np.abs(rg.pose.R.cpu().numpy() - rc.pose.R.numpy()).max())
+        df = abs(float(rg.fitness) / float(rc.fitness) - 1)
+        assert dt <= atol and dR <= atol and df <= fitness_rtol, (name, dt, dR, df)
+        assert bool(rg.lost) == bool(rc.lost) and bool(rg.degenerate) == bool(rc.degenerate), name
+
+    cfg = loc.LocalizationConfig(scan2map=s2m.Scan2MapConfig(solver=register.SolverConfig(max_iterations=6),
+                                                             degeneracy_eig=1.0))
+    corners_w, surfs_w = synthetic.make_feature_world(seed=3)
+    maps = []
+    for cloud, g in ((corners_w, cfg.scan2map.corner_grid), (surfs_w, cfg.scan2map.surf_grid)):
+        pts = torch.from_numpy(np.ascontiguousarray(cloud.T.astype(np.float32)))
+        maps.append(ops.insert(g, ops.create(g, device="cpu"), pts, torch.ones(pts.shape[1], dtype=torch.bool)))
+    t = np.array([0.4, 0.3, 1.0], np.float32)
+    c, cm = synthetic.take_scan(corners_w, np.eye(3, dtype=np.float32), t, 512, seed=1)
+    s, sm = synthetic.take_scan(surfs_w, np.eye(3, dtype=np.float32), t, 2048, seed=101)
+    args = [torch.from_numpy(np.ascontiguousarray(a.T) if a.ndim == 2 else a) for a in (c, cm, s, sm)]
+    init = se3.Pose(torch.eye(3), torch.from_numpy(t + np.array([0.05, -0.04, 0.02], np.float32)))
+    rc = loc.localize_loam(cfg, None, *maps, *args, init)
+    gmaps, gargs, ginit = [_to(m, cuda) for m in maps], [a.to(cuda) for a in args], _to(init, cuda)
+    _count_syncs(lambda: loc.localize_loam(cfg, None, *gmaps, *gargs, ginit))   # warm-up
+
+    def frame():
+        r = loc.localize_loam(cfg, None, *gmaps, *gargs, ginit)
+        loc.relocalize(r, ginit)
+        return r
+
+    rg, syncs = _count_syncs(frame)
+    close(rc, rg, "loam", 5e-3, 2e-2)
+    assert syncs == 5, syncs
+
+    world = synthetic.make_room_cloud(6000, seed=0)
+    R, tt = synthetic.random_pose(seed=1, rot_scale=0.03, trans_scale=0.2)
+    scan = torch.from_numpy(np.ascontiguousarray(((world[:2000] - tt) @ R).astype(np.float32).T))
+    w = torch.from_numpy(np.ascontiguousarray(world.T))
+    ncfg = loc.LocalizationConfig(method="ndt")
+    ngc, nmap = register.ndt.build_target(ncfg.ndt, w, baked=True)
+    pgc, pmap = register.build_target_map(w, grid_cfg=ops.GridConfig(capacity=1 << 14, pts_per_voxel=8,
+                                                                       resolution=1.0, nearby=7))
+    mask = torch.ones(scan.shape[1], dtype=torch.bool)
+    rc = loc.localize_ndt(ncfg, ngc, nmap, pgc, pmap, scan, mask, se3.identity())
+    gargs = (ngc, _to(nmap, cuda), pgc, _to(pmap, cuda), scan.to(cuda), mask.to(cuda), se3.identity(device=cuda))
+    _count_syncs(lambda: loc.localize_ndt(ncfg, *gargs))
+    rg, syncs = _count_syncs(lambda: loc.localize_ndt(ncfg, *gargs))
+    close(rc, rg, "ndt", 1e-3, 1e-3)
+    np.testing.assert_allclose(float(rg.max_eigen), float(rc.max_eigen), rtol=1e-3)
+    assert syncs == 1, syncs
+
+
+def test_lio_update_on_card_matches_cpu(cuda):
+    """The LIO's iterated update (its 23x23 algebra in float64) on the same
+    prior on both devices, one spanning eight decades as P does after a few
+    frames (rotation 3e-8 against an accelerometer bias of 1), with
+    point-to-plane rows of a room: the card's state within 1e-5 (m, rad,
+    m/s^2) of the CPU's, P within 1e-5 relative, and with cached
+    correspondences no host read."""
+    from pointcloud_slam_tpu_torch.models.lio import eskf, imu, state as st
+
+    rng = np.random.default_rng(0)
+    n = 3000
+    normals = np.array([[0, 0, 1], [1, 0, 0], [1, 0, 0], [0, 1, 0], [0, 1, 0], [0, 0, 1], [0, 1, 0]], np.float32)
+    offsets = np.array([0, -6, 6, -6, 6, -3, 0], np.float32)
+    k = rng.integers(0, 7, n)
+    pw = rng.uniform(-6, 6, size=(3, n)).astype(np.float32)
+    pw[2] = rng.uniform(0, 3, n)
+    for i in range(7):
+        pw[int(np.argmax(normals[i])), k == i] = -offsets[i]
+    var = np.r_[[2e-6] * 3, [3e-8] * 3, [1e-5] * 6, [3e-3] * 3, [2e-5] * 3, [1.0] * 3, [1e-5] * 2]
+    x = st.identity(torch.float32, device="cpu")._replace(pos=torch.tensor([0.3, -0.2, 1.5]),
+                                                          vel=torch.tensor([0.5, 0.3, 0.0]))
+    dt = torch.full((20,), 0.005)
+    x, P, _ = imu.propagate(x, torch.diag(torch.tensor(var, dtype=torch.float32)), eskf.process_noise_cov(),
+                            torch.from_numpy(rng.normal(size=(20, 3)).astype(np.float32)) + torch.tensor([0, 0, 9.809]),
+                            torch.from_numpy(rng.normal(scale=0.3, size=(20, 3)).astype(np.float32)), dt,
+                            torch.cumsum(dt, 0), torch.ones(20, dtype=torch.bool), torch.ones(()), torch.zeros(3),
+                            torch.zeros(3))
+
+    def update(dev):
+        nrm = torch.from_numpy(normals[k].T.copy()).to(dev)
+        off = torch.from_numpy(offsets[k]).to(dev)
+        pb = torch.from_numpy(pw).to(dev) - torch.tensor([0.3, -0.2, 1.5], device=dev)[:, None]
+
+        def obs(x, do_search, cache):
+            p_imu = x.ext_R @ pb + x.ext_t[:, None]
+            q = x.rot @ p_imu + x.pos[:, None]
+            h = -(nrm[0] * q[0] + nrm[1] * q[1] + nrm[2] * q[2] + off)
+            c = x.rot.T @ nrm
+            a = torch.stack([p_imu[1] * c[2] - p_imu[2] * c[1], p_imu[2] * c[0] - p_imu[0] * c[2],
+                             p_imu[0] * c[1] - p_imu[1] * c[0]])
+            z = torch.zeros_like(h)
+            return torch.stack([nrm[0], nrm[1], nrm[2], a[0], a[1], a[2], z, z, z, z, z, z], 1), h, h.abs() < 1.0, cache
+
+        xd, Pd = st.NavState(*(v.to(dev) for v in x)), P.to(dev)
+        return lambda: eskf.update_iterated(xd, Pd, obs, 0.001, 4, 0.001, research=False)
+
+    uc = update("cpu")()
+    upd = update(cuda)
+    _count_syncs(upd)                                         # warm-up
+    ug, syncs = _count_syncs(upd)
+    dx = st.boxminus(st.NavState(*(v.cpu() for v in ug.x)), uc.x)
+    assert float(dx.abs().max()) < 1e-5, dx
+    scale = torch.sqrt(torch.outer(torch.diagonal(uc.P), torch.diagonal(uc.P)))
+    assert float(((ug.P.cpu() - uc.P) / scale).abs().max()) < 1e-5
+    assert ug.P.dtype == torch.float32 and ug.host_syncs == 0 and syncs == 0, syncs
