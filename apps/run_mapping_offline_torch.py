@@ -9,7 +9,9 @@ one), a dataset directory (`--data_dir`: `frame_%06d.pcd` with per-point
 times, `imu.csv`, `scan_times.txt`, as `tools/make_dataset_torch.py lio`
 writes it), or `--synthetic N`. Each frame goes through the port's
 `lio_step`; the trajectory is written in TUM format and, with `--map_file`,
-the final map as a PCD.
+the final map as a PCD; per-frame stage times go to `--time_log_file`
+(the CSV `apps/plot_timings.py` reads), and `--auto_grid` sizes the voxel
+map to the first scan's point spacing.
 
     python apps/run_mapping_offline_torch.py --synthetic 40            # on the GPU
     python apps/run_mapping_offline_torch.py --bag_file seq/data.bag
@@ -38,9 +40,14 @@ def parse_args(argv=None):
     p.add_argument("--data_dir", default="", help="dataset directory (PCD frames + imu.csv + scan_times.txt)")
     p.add_argument("--synthetic", type=int, default=0, help="replay N synthetic frames")
     p.add_argument("--traj_log_file", default="traj.txt")
+    p.add_argument("--time_log_file", default="time.csv",
+                   help="per-stage timer CSV (Timer.dump_into_file); an empty string writes none")
     p.add_argument("--map_file", default="", help="save the final map as a PCD here")
     p.add_argument("--n_points", type=int, default=8192)
     p.add_argument("--n_imu", type=int, default=64)
+    p.add_argument("--auto_grid", action="store_true",
+                   help="size the voxel map (resolution + stencil) to the first scan's measured point "
+                        "spacing (ops/tuning.py) instead of the config defaults")
     p.add_argument("--device", default="cuda", help="torch device the frame step runs on")
     return p.parse_args(argv)
 
@@ -217,6 +224,7 @@ def main(argv=None):
     from pointcloud_slam_tpu_torch.geom import so3
     from pointcloud_slam_tpu_torch.models import lio
     from pointcloud_slam_tpu_torch.utils import checkpoint as ck
+    from pointcloud_slam_tpu_torch.utils.timer import Timer
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -230,11 +238,28 @@ def main(argv=None):
         src = frames_synthetic(args, device)
     else:
         raise SystemExit("give --bag_file, --data_dir or --synthetic N")
+    if args.auto_grid:
+        # measure the first scan's point spacing and size the map grid to it
+        # (ops/tuning.py): the robust fallback when no per-lidar YAML matches
+        # the sensor. The probed frame is chained back, so the input is read once.
+        import dataclasses
+        import itertools
+
+        from pointcloud_slam_tpu_torch.ops import tuning
+
+        first = next(src)
+        src = itertools.chain([first], src)
+        g = tuning.suggest_grid(first[0].pts, first[0].pt_mask, capacity=cfg.grid.capacity,
+                                pts_per_voxel=cfg.grid.pts_per_voxel)
+        print(f"auto_grid: resolution {g.resolution} m, stencil {g.nearby}")
+        cfg = dataclasses.replace(cfg, grid=g)
     state = lio.create_state(cfg, device=device)
     times, poss, rots = [], [], []
+    Timer.reset()
     t_start = time.perf_counter()
     for frame, stamp in src:
-        state, out = lio.lio_step(cfg, state, frame)
+        # CUDA events on the card, resolved once at the end: no wait a frame
+        state, out = Timer.evaluate(lambda: lio.lio_step(cfg, state, frame), "lio_step")
         times.append(stamp)
         poss.append(out.pos)
         rots.append(out.rot)
@@ -243,6 +268,10 @@ def main(argv=None):
     wall = time.perf_counter() - t_start
     n = len(times)
     print(f"frames: {n}  wall: {wall:.2f}s  mean FPS: {n / max(wall, 1e-9):.2f}  device: {device}")
+    Timer.print_all()
+    if args.time_log_file:
+        Timer.dump_into_file(args.time_log_file)
+        print(f"stage times -> {args.time_log_file}")
     if args.traj_log_file:
         ck.save_trajectory_tum(args.traj_log_file, times, pos, quats)
         print(f"trajectory -> {args.traj_log_file}")

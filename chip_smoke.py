@@ -66,6 +66,19 @@ kernel on them against its plain PyTorch version. Phases:
      dataset against the mapped PCD must run to finite trajectories (their
      gaps and errors against ground truth reported); the C++ oracle's
      esti_plane beside plane_fit on the card
+ 12. map products (apps/construct_full_map_torch.py): on the keyframes the
+     SLAM app saved in phase 9, every product, then config 8's localization
+     (64 frames) against the feature tiles it wrote, through the
+     localization app's TileMapLoader (gates: < 0.10 m, 0 lost); 100
+     synthetic keyframes of 20,000 points (2 M points, 8 downsample chunks)
+     at the app's default sizes: per product (downsample, feature tiles, 2-D
+     occupancy, 3-D occupancy + .bt) wall, keyframes/s, host syncs, launches
+     and GPU busy a keyframe, peak memory, the 3-D map's slot collisions;
+     the app with --device cpu against the card on the first 10 keyframes
+     (full map 1e-5 m after a sort, tiles byte-identical, grid cells
+     listed, .bt leaves); the mapping app with --auto_grid --time_log_file
+     on phase 11's dataset and the tuned LIO under the timer (no added
+     sync). K1 and K2 must stay at 0 launches
 
 Every timed K1 / K2 shape prints what the wrapper's plan ran it with: the
 instance (list length), R (queries per thread, always 1) and S (database
@@ -304,12 +317,19 @@ def build_frames(device, n_frames):
     return frames, np.asarray(gt)
 
 
-def run_lio(cfg, frames, gt, device):
+def run_lio(cfg, frames, gt, device, timer=False):
     """Frame steps from a fresh state. Returns (state, stats); the steady-state
-    fps covers frames 5.. (after IMU init and the first updates)."""
+    fps covers frames 5.. (after IMU init and the first updates). With
+    `timer`, each step runs inside `Timer.evaluate`, as the mapping app's."""
     import torch
 
     from pointcloud_slam_tpu_torch.models import lio
+    from pointcloud_slam_tpu_torch.utils.timer import Timer
+
+    def step(s, fr):
+        if timer:
+            return Timer.evaluate(lambda: lio.lio_step(cfg, s, fr), "lio_step")
+        return lio.lio_step(cfg, s, fr)
 
     s = lio.create_state(cfg, device=device)
     outs = []
@@ -322,7 +342,7 @@ def run_lio(cfg, frames, gt, device):
                 if k == 5:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                s, out = lio.lio_step(cfg, s, fr)
+                s, out = step(s, fr)
                 outs.append(out.pos)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -1145,6 +1165,271 @@ def run_recorded(dev, out_dir):
     return res
 
 
+MAP_KEYFRAMES = 100        # phase 12's full-size keyframes ...
+MAP_POINTS = 20_000        # ... of this many points each (2 M points, 8 downsample chunks)
+MAP_CMP_KEYFRAMES = 10     # the card against the CPU on the first ones
+MAP_LOC_FRAMES = 64        # localization on the app's tiles: bench.py config 8's chain length
+
+
+def map_keyframes(out_dir, n, n_pts):
+    """n keyframes of n_pts points of the 30 m room (make_room_cloud, 400,000
+    points) seen from a 33.9 m diagonal (-12, -12, 1.5) -> (12, 12, 1.5),
+    heading along it with a +-0.3 rad sway, range-gated at 30 m
+    (make_scan_from_world): Scans/%06d.pcd in the sensor frame, every tenth
+    point again as %06d_corner.pcd, and the exact poses in poses_kitti.txt."""
+    from pointcloud_slam_tpu_torch.io import pcd, synthetic
+
+    world = synthetic.make_room_cloud(400_000, seed=7, size=30.0)
+    os.makedirs(os.path.join(out_dir, "Scans"), exist_ok=True)
+    rows = []
+    for k in range(n):
+        s = k / (n - 1)
+        pos = np.array([-12.0 + 24.0 * s, -12.0 + 24.0 * s, 1.5])
+        yaw = np.pi / 4 + 0.3 * np.sin(6 * np.pi * s)
+        R = np.array([[np.cos(yaw), -np.sin(yaw), 0.0], [np.sin(yaw), np.cos(yaw), 0.0], [0.0, 0.0, 1.0]])
+        pts = (synthetic.make_scan_from_world(world, pos, max_range=30.0, seed=k, n_out=n_pts) @ R).astype(np.float32)
+        pcd.write_pcd(os.path.join(out_dir, "Scans", f"{k:06d}.pcd"), pts)
+        pcd.write_pcd(os.path.join(out_dir, "Scans", f"{k:06d}_corner.pcd"), pts[::10])
+        rows.append(np.hstack([R, pos[:, None]]).reshape(-1))
+    np.savetxt(os.path.join(out_dir, "poses_kitti.txt"), np.stack(rows))
+
+
+def maps_chain(dev, kf_dir):
+    """Phase 12, item 1: apps/construct_full_map_torch.py on the SLAM app's
+    keyframes (phase 9), then localize_loam at bench.py config 8's shapes
+    against the feature tiles it wrote, loaded by the localization app's
+    TileMapLoader: 64 frames of 512 corner / 2,048 surface points of the
+    SLAM world (make_feature_world(seed=1)) from the same 3 m circle, between
+    the SLAM frames, constant-velocity prediction, 6 GN iterations. The SLAM
+    run starts at the identity where the world has (0, 0, 1): the ground
+    truth is taken in the map's frame."""
+    import dataclasses
+
+    import torch
+
+    from pointcloud_slam_tpu_torch import register
+    from pointcloud_slam_tpu_torch.geom import se3
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.maps import octomap_io
+    from pointcloud_slam_tpu_torch.models.localization import pipeline as loc
+
+    fm = os.path.join(kf_dir, "features")
+    t0 = time.perf_counter()
+    app = run_apps({"maps": [os.path.join(ROOT, "apps", "construct_full_map_torch.py"), kf_dir, "--out",
+                             os.path.join(kf_dir, "full.pcd"), "--feature_maps", fm, "--occupancy",
+                             os.path.join(kf_dir, "grid"), "--bt", os.path.join(kf_dir, "map.bt")]}, timeout=600)
+    res = dict(app_s=time.perf_counter() - t0, app=app["maps"][1].strip().splitlines())
+    _, occ_pts, free_pts = octomap_io.load_bt(os.path.join(kf_dir, "map.bt"))
+    check(len(occ_pts) > 0 and len(free_pts) > 0, "maps app: empty .bt")
+    loc_app = load_app("apps/run_localization_torch.py", "smoke_loc_app")
+    args = loc_app.parse_args(["--feature_map_dir", fm, "--synthetic", "1"])
+    cfg = loc_app.build_config(args)
+    cfg = dataclasses.replace(cfg, scan2map=dataclasses.replace(
+        cfg.scan2map, solver=register.SolverConfig(max_iterations=6)))
+    loader = loc_app.TileMapLoader(args, cfg, dev)
+    corners_w, surfs_w = synthetic.make_feature_world(seed=1)
+    eye = np.eye(3, dtype=np.float32)
+    origin = np.array([0.0, 0.0, 1.0], np.float32)
+    frames, gts = [], []
+    for k in range(MAP_LOC_FRAMES):
+        ang = 2 * np.pi * (k + 0.5) / MAP_LOC_FRAMES
+        t = np.array([3.0 * np.sin(ang), 3.0 * (1 - np.cos(ang)), 1.0], np.float32)
+        c, cm = synthetic.take_scan(corners_w, eye, t, 512, seed=k)
+        s, sm = synthetic.take_scan(surfs_w, eye, t, 2048, seed=100 + k)
+        frames.append(tuple(torch.from_numpy(np.ascontiguousarray(a.T) if a.ndim == 2 else a).to(dev)
+                            for a in (c, cm, s, sm)))
+        gts.append(t - origin)
+    pose = prev_t = None
+    outs = []
+    t1 = time.perf_counter()
+    for k, f in enumerate(frames):
+        if pose is None:
+            pose = se3.Pose(torch.eye(3, device=dev), torch.from_numpy(gts[0]).to(dev))
+            prev_t = pose.t
+        x, y = pose.t[:2].tolist()     # tile selection, as the app reads it
+        r = loc.localize_loam(cfg, None, *loader.maybe_update_features(x, y), *f,
+                              se3.Pose(pose.R, pose.t + (pose.t - prev_t)))
+        pose, prev_t = r.pose, pose.t
+        outs.append(r)
+    ts = torch.stack([o.pose.t for o in outs]).cpu().numpy()
+    wall = time.perf_counter() - t1
+    errs = np.linalg.norm(ts - np.stack(gts), axis=1)
+    lost = int(torch.stack([o.lost for o in outs]).sum())
+    res.update(loc_frames=MAP_LOC_FRAMES, loc_frames_per_s=MAP_LOC_FRAMES / wall, loc_max_err_m=float(errs.max()),
+               loc_mean_err_m=float(errs.mean()), loc_lost=lost,
+               tiles={fam: len(a) for fam, a in loader.feat_areas.items()})
+    check(np.isfinite(ts).all() and errs.max() < 0.10 and lost == 0,
+          f"localization on the app's tiles: max error {errs.max()} m, {lost} lost (gates: < 0.10 m, 0)")
+    return res
+
+
+def measure_product(fn, window, n_window, n_keyframes):
+    """One product over every keyframe: wall, keyframes/s, host syncs a
+    keyframe and peak memory; then launches and GPU busy a keyframe from a
+    torch.profiler window of n_window keyframes. Returns (fn's result, fields)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, syncs = count_syncs(fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, busy, pwall, top = profile_launches(window)
+    return out, dict(wall_s=wall, keyframes_per_s=n_keyframes / wall, host_syncs_per_keyframe=syncs / n_keyframes,
+                     launches_per_keyframe=launches / n_window, gpu_busy_ms_per_keyframe=busy / n_window,
+                     idle_share=1 - busy / pwall, peak_mem_gib=peak, profiled_keyframes=n_window, top_device_ms=top)
+
+
+def map_products(dev, kf_dir):
+    """Phase 12, item 2: each product of apps/construct_full_map_torch.py at
+    its default sizes (0.2 m leaf in 2^18-point chunks; 50 m feature tiles;
+    a 1,024^2 grid at 0.1 m; the 3-D map at 0.2 m with 2^20 slots and 32 free
+    steps a beam, then the .bt file) over MAP_KEYFRAMES keyframes, measured
+    one by one through the app's own functions."""
+    import torch
+
+    from pointcloud_slam_tpu_torch import convert
+    from pointcloud_slam_tpu_torch.io import pcd
+    from pointcloud_slam_tpu_torch.maps import occupancy, octomap_io, tiled
+
+    app = load_app("apps/construct_full_map_torch.py", "smoke_maps_app")
+    out = os.path.join(kf_dir, "products")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    kf = app.load_keyframes(kf_dir, "poses_kitti.txt", dev)
+    torch.cuda.synchronize()
+    K = len(kf.names)
+    res = dict(keyframes=K, points=int(kf.world.shape[1]), load_s=time.perf_counter() - t0)
+    cfg = occupancy.OccupancyConfig(size=1024, resolution=0.1, origin=-1024 * 0.1 / 2)
+    vcfg = tiled.VoxelOccConfig(capacity=1 << 20, resolution=0.2)
+
+    def downsample():
+        full = app.full_map(kf, 0.2)
+        pcd.write_pcd(os.path.join(out, "full.pcd"), full)
+        return len(full)
+
+    n_full, res["downsample"] = measure_product(downsample, lambda: app.full_map(kf, 0.2), K, K)
+    res["downsample"].update(chunks=-(-res["points"] // app.CH), points_out=n_full)
+    tiles, res["feature_tiles"] = measure_product(
+        lambda: app.feature_maps(kf_dir, kf, os.path.join(out, "features"), 50.0),
+        lambda: app.feature_maps(kf_dir, kf.head(8), os.path.join(out, "features_window"), 50.0), 8, K)
+    res["feature_tiles"]["families"] = tiles
+    _, res["occupancy_2d"] = measure_product(
+        lambda: occupancy.save_pgm(cfg, app.occupancy_map(kf, cfg, range(K)), os.path.join(out, "grid")),
+        lambda: app.occupancy_map(kf, cfg, range(8)), 8, K)
+
+    def octomap():
+        vmap, collisions = app.octomap(kf, vcfg)
+        host = convert.to_numpy(vmap)
+        return octomap_io.save_bt(os.path.join(out, "map.bt"), vcfg, host), int((host.fp != 0).sum()), collisions
+
+    (n_nodes, n_voxels, collisions), res["occupancy_3d_bt"] = measure_product(
+        octomap, lambda: app.octomap(kf.head(4), vcfg), 4, K)
+    res["occupancy_3d_bt"].update(bt_nodes=n_nodes, voxels=n_voxels, slot_collisions=int(collisions))
+    grid, _ = occupancy.load_pgm(os.path.join(out, "grid"))
+    check(n_full > 0 and (grid == 100).sum() > 0 and (grid == 0).sum() > 0 and n_nodes > 0,
+          f"map products: {n_full} points, grid {np.unique(grid)}, {n_nodes} .bt nodes")
+    return res
+
+
+def maps_card_vs_cpu(kf_dir, cmp_dir, n):
+    """Phase 12, item 3: the app on the first n keyframes with --device cpu
+    and on the card; full maps equal point by point within 1e-5 m,
+    feature tiles and arealists byte-identical, the trinary grids' differing
+    cells listed (gate: at most 0.1 % of the observed cells, each free on
+    one side and unknown on the other at the free region's edge), the .bt
+    files' occupied and free leaves equal as sets."""
+    import filecmp
+    import shutil
+
+    from pointcloud_slam_tpu_torch.io import pcd
+    from pointcloud_slam_tpu_torch.maps import occupancy, octomap_io
+
+    os.makedirs(os.path.join(cmp_dir, "Scans"), exist_ok=True)
+    for k in range(n):
+        for pat in ("%06d.pcd", "%06d_corner.pcd"):
+            shutil.copy(os.path.join(kf_dir, "Scans", pat % k), os.path.join(cmp_dir, "Scans", pat % k))
+    with open(os.path.join(kf_dir, "poses_kitti.txt")) as f:
+        rows = f.read().splitlines()[:n]
+    with open(os.path.join(cmp_dir, "poses_kitti.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    app = load_app("apps/construct_full_map_torch.py", "smoke_maps_cmp_app")
+    res, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        d = outs[dev] = os.path.join(cmp_dir, dev)
+        os.makedirs(d, exist_ok=True)
+        t0 = time.perf_counter()
+        app.main([cmp_dir, "--out", os.path.join(d, "full.pcd"), "--feature_maps", os.path.join(d, "features"),
+                  "--occupancy", os.path.join(d, "grid"), "--bt", os.path.join(d, "map.bt"), "--device", dev])
+        res[f"{dev}_s"] = time.perf_counter() - t0
+    # both devices put every point in the same voxel and emit the voxels in
+    # the same order (that of each voxel's first point): compared point by
+    # point, which implies equal after a sort
+    full = {dev: pcd.read_pcd_xyz(os.path.join(d, "full.pcd")) for dev, d in outs.items()}
+    check(full["cpu"].shape == full["cuda"].shape, f"full maps: {full['cpu'].shape} / {full['cuda'].shape}")
+    res["full_map_points"] = len(full["cpu"])
+    res["full_map_max_diff_m"] = float(np.abs(full["cpu"] - full["cuda"]).max())
+    check(res["full_map_max_diff_m"] <= 1e-5, f"full maps differ by {res['full_map_max_diff_m']} m")
+    names = sorted(os.listdir(os.path.join(outs["cpu"], "features")))
+    check(names == sorted(os.listdir(os.path.join(outs["cuda"], "features"))), "feature tile names differ")
+    check(all(filecmp.cmp(os.path.join(outs["cpu"], "features", nm), os.path.join(outs["cuda"], "features", nm),
+                          shallow=False) for nm in names), "feature tiles differ")
+    res["feature_files_identical"] = len(names)
+    gc, _ = occupancy.load_pgm(os.path.join(outs["cpu"], "grid"))
+    gg, _ = occupancy.load_pgm(os.path.join(outs["cuda"], "grid"))
+    observed = (gc != -1) | (gg != -1)
+    diff = np.argwhere(gc != gg)
+    free_c = np.pad(gc == 0, 1)
+    edge = [bool((~free_c[i:i + 3, j:j + 3]).any()) for i, j in diff]
+    pairs = {(int(gc[i, j]), int(gg[i, j])) for i, j in diff}
+    res.update(grid_observed_cells=int(observed.sum()), grid_differing_cells=len(diff),
+               grid_differing=[[int(i), int(j), int(gc[i, j]), int(gg[i, j])] for i, j in diff[:20]])
+    check(len(diff) <= 1e-3 * observed.sum() and pairs <= {(0, -1), (-1, 0)} and all(edge),
+          f"grids: {len(diff)} of {int(observed.sum())} observed cells differ, pairs {pairs}")
+    bt = [os.path.join(d, "map.bt") for d in (outs["cpu"], outs["cuda"])]
+    res["bt_identical"] = filecmp.cmp(*bt, shallow=False)
+    if not res["bt_identical"]:
+        (_, oc, fc), (_, og, fg) = (octomap_io.load_bt(p) for p in bt)
+        as_set = (lambda q: set(map(tuple, np.round(q / 0.2 - 0.5).astype(int))))
+        check(as_set(oc) == as_set(og) and as_set(fc) == as_set(fg), ".bt leaves differ")
+    return res
+
+
+def mapping_timer(dev, seq, out_dir, cfg, frames, gt, tuned):
+    """Phase 12, item 4: the mapping app with --auto_grid --time_log_file on
+    phase 11's dataset (trajectory within REPLAY_MAX_ERR_M of gt_traj.txt at
+    every frame; the CSV read by apps/plot_timings.read_timer_csv); the tuned
+    LIO of phase 3 with every step under Timer.evaluate: its host syncs a
+    frame must stay phase 3's."""
+    from pointcloud_slam_tpu_torch.utils.timer import Timer
+
+    traj, csv = os.path.join(out_dir, "smoke_replay_autogrid.txt"), os.path.join(out_dir, "smoke_time.csv")
+    app = run_apps({"mapping": [os.path.join(ROOT, "apps", "run_mapping_offline_torch.py"), "--data_dir", seq,
+                                "--auto_grid", "--time_log_file", csv, "--traj_log_file", traj]}, timeout=600)
+    so = app["mapping"][1]
+    rows, gt_rows = np.loadtxt(traj), np.loadtxt(os.path.join(seq, "gt_traj.txt"))
+    err = float(np.linalg.norm(rows[:, 1:4] - gt_rows[:, 1:4], axis=1).max())
+    cols = load_app("apps/plot_timings.py", "smoke_plot_timings").read_timer_csv(csv)
+    check(rows.shape == gt_rows.shape and err < REPLAY_MAX_ERR_M, f"auto_grid replay: {err} m from the ground truth")
+    check(list(cols) == ["lio_step"] and len(cols["lio_step"]) == len(rows), f"timer CSV: {list(cols)}")
+    Timer.reset()
+    _, timed = run_lio(cfg, frames, gt, dev, timer=True)
+    res = dict(auto_grid=next(ln for ln in so.splitlines() if ln.startswith("auto_grid")), replay_err_vs_gt_m=err,
+               csv_rows=len(cols["lio_step"]), csv_mean_ms=float(cols["lio_step"].mean()),
+               lio_timer=dict(fps=timed["fps"], host_syncs_per_frame=timed["host_syncs_per_frame"],
+                              sync_ops_seen_per_frame=timed["sync_ops_seen_per_frame"],
+                              timer_mean_ms=Timer.mean("lio_step")),
+               lio_phase3=dict(host_syncs_per_frame=tuned["host_syncs_per_frame"],
+                               sync_ops_seen_per_frame=tuned["sync_ops_seen_per_frame"]))
+    Timer.reset()
+    check(timed["host_syncs_per_frame"] == tuned["host_syncs_per_frame"]
+          and timed["sync_ops_seen_per_frame"] <= tuned["sync_ops_seen_per_frame"],
+          f"the timer adds syncs: {res['lio_timer']} against phase 3's {res['lio_phase3']}")
+    return res
+
+
 def main():
     import torch
 
@@ -1287,8 +1572,10 @@ def main():
     check(abs(fr["drift_m_per_m"]) <= 0.01, f"SLAM fresh: drift {fr['drift_m_per_m']} m/m (gate 0.01, bench.py:867)")
     big, _ = run_slam_shape(slam_config(4096), dev, "revisit", 4064, 8, world)
     phase(9, "SLAM revisit (KF 4096, 4064 pre-populated, 8 frames)", **big)
+    # its keyframe artifacts are phase 12's input
     app = subprocess.run([sys.executable, os.path.join(ROOT, "apps", "run_slam_offline_torch.py"), "--synthetic", "40",
-                          "--device", "cuda", "--out_dir", str(_cuda.BUILD_DIR / "smoke_slam")],
+                          "--device", "cuda", "--save_artifacts",
+                          "--out_dir", str(_cuda.BUILD_DIR / "smoke_maps" / "kf")],
                          capture_output=True, text=True, timeout=600, cwd=ROOT)
     check(app.returncode == 0, f"SLAM app failed ({app.returncode}):\n{app.stdout}\n{app.stderr}")
     phase(9, "SLAM app", rc=app.returncode, out=app.stdout.strip().splitlines()[0])
@@ -1313,9 +1600,25 @@ def main():
 
     # ---- 11. recorded data: dataset + bag, three replays, SLAM and localization on them ----
     phase(11, "recorded data", **run_recorded(dev, str(_cuda.BUILD_DIR)))
+
+    # ---- 12. map products: keyframes -> maps -> localization; full size; card vs CPU; timer ----
+    bf_knn.knn.launches = bf_knn.nearest_neighbor.launches = 0
+    maps_dir = _cuda.BUILD_DIR / "smoke_maps"
+    phase(12, "maps from the SLAM app's keyframes, localization on their tiles",
+          **maps_chain(dev, str(maps_dir / "kf")))
+    t0 = time.perf_counter()
+    map_keyframes(str(maps_dir / "full"), MAP_KEYFRAMES, MAP_POINTS)
+    products = dict(dataset_s=time.perf_counter() - t0, **map_products(dev, str(maps_dir / "full")))
+    phase(12, f"map products ({MAP_KEYFRAMES} keyframes x {MAP_POINTS} points)", nvidia_smi=smi, **products)
+    phase(12, f"maps card vs CPU ({MAP_CMP_KEYFRAMES} keyframes)",
+          **maps_card_vs_cpu(str(maps_dir / "full"), str(maps_dir / "cmp"), MAP_CMP_KEYFRAMES))
+    timer = mapping_timer(dev, str(_cuda.BUILD_DIR / "smoke_lio"), str(_cuda.BUILD_DIR), cfg, frames, gt, tuned)
+    k1_k2 = [bf_knn.knn.launches, bf_knn.nearest_neighbor.launches]
+    phase(12, "mapping app --auto_grid --time_log_file, LIO under the timer", k1_k2_launches=k1_k2, **timer)
+    check(k1_k2 == [0, 0], f"the maps path launched K1/K2 {k1_k2} times")
     check("jax" not in sys.modules and not any(m.split(".")[0] == "pointcloud_slam_tpu" for m in sys.modules),
           "the port imported jax or the JAX package")
-    phase(12, "done", wall_s=time.perf_counter() - t_script)
+    phase(13, "done", wall_s=time.perf_counter() - t_script)
 
     k1_bound, k1_bound_by = knn_bound_ms(pts.shape[1], pts.shape[1], 20)
     print(json.dumps({"kernels": [

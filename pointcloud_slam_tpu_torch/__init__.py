@@ -23,6 +23,6 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from . import geom, io, models, ops, register, utils  # noqa: E402
+from . import geom, io, maps, models, ops, register, utils  # noqa: E402
 
-__all__ = ["geom", "ops", "register", "models", "io", "utils"]
+__all__ = ["geom", "ops", "register", "models", "maps", "io", "utils"]

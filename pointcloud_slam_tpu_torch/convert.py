@@ -8,10 +8,12 @@ registration targets: a GICP target (voxel map + flat covariance
 attributes) and plain or stencil-baked Gaussian voxel maps, so that both
 sides can align against the same target; and SLAM state: preintegrated IMU
 factors, pose graphs and whole `SLAMState`s, so that both packages can
-start from one populated state; and localization results. `to_numpy` goes back: the port's
-NamedTuples with numpy leaves in the JAX package's dtypes (fingerprint rows
-back to uint32, host flags and counters back to 0-d arrays), so both sides'
-states compare leaf by leaf.
+start from one populated state; localization results; and map products:
+2-D occupancy grids, 3-D hash occupancy maps (uint32 fingerprints as
+int64) and dense occupancy volumes (uint32 hit counts as int32).
+`to_numpy` goes back: the port's NamedTuples with numpy leaves in the JAX
+package's dtypes (fingerprint rows back to uint32, host flags and counters
+back to 0-d arrays), so both sides' states compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ import numpy as np
 import torch
 
 from .geom.se3 import Pose
+from .maps.occupancy import OccupancyGrid
+from .maps.pcd2map import OccupancyVolume
+from .maps.tiled import VoxelOccupancy3D
 from .models.lio import state as st
 from .models.lio.pipeline import LIOFrame, LIOState
 from .models.lio.preintegration import PreintegratedImu
@@ -113,13 +118,30 @@ def localization_result_from_numpy(r, device="cuda") -> LocalizationResult:
                               *(_t(getattr(r, f), device) for f in LocalizationResult._fields[1:]))
 
 
+def occupancy_grid_from_numpy(g, device="cuda") -> OccupancyGrid:
+    return OccupancyGrid(logodds=_t(g.logodds, device))
+
+
+def voxel_occ3d_from_numpy(m, device="cuda") -> VoxelOccupancy3D:
+    """A JAX `VoxelOccupancy3D` (uint32 fingerprints) as the port's (int64)."""
+    return _map_from_numpy(VoxelOccupancy3D, m, device)
+
+
+def occupancy_volume_from_numpy(v, device="cuda") -> OccupancyVolume:
+    """A JAX `OccupancyVolume` (uint32 hit counts) as the port's (int32)."""
+    return OccupancyVolume(hits=_t(np.asarray(v.hits).astype(np.int32), device))
+
+
 def to_numpy(obj):
     """The port's state (LIOState, SLAMState, PoseGraph, VoxelHashMap,
-    Gaussian maps, NavState, LIOFrame or any NamedTuple of tensors) as the
-    same NamedTuple with numpy leaves in the JAX package's dtypes."""
+    Gaussian maps, map products, NavState, LIOFrame or any NamedTuple of
+    tensors) as the same NamedTuple with numpy leaves in the JAX package's
+    dtypes."""
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
-    if isinstance(obj, (VoxelHashMap, GaussianVoxelMap, BakedGaussianMap)):
+    if isinstance(obj, OccupancyVolume):
+        return OccupancyVolume(hits=to_numpy(obj.hits).astype(np.uint32))
+    if isinstance(obj, (VoxelHashMap, GaussianVoxelMap, BakedGaussianMap, VoxelOccupancy3D)):
         out = type(obj)(*(to_numpy(v) for v in obj))
         return out._replace(fp=out.fp.astype(np.uint32))
     if isinstance(obj, LIOState):

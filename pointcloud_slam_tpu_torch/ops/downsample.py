@@ -5,19 +5,32 @@ filter as the reference uses it, laser_mapping.cc:325).
 Outputs keep fixed shapes with a validity mask, so nothing here reads back
 from the device. torch has no lexsort: the (x, y, z) voxel-key order is
 built from three stable argsorts, minor key first.
+
+Voxel keys multiply by the float32 reciprocal of the leaf (`recip32`)
+rather than divide: PyTorch's CUDA kernel turns a division by a host
+scalar into that product while the CPU divides, and the two put a point on
+a voxel bound into different voxels. Multiplying on both makes the card's
+voxels the CPU's (and jitted XLA's, which folds the division the same way).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _BIG = torch.iinfo(torch.int32).max
 
 
+def recip32(v: float) -> float:
+    """1 / v in float32, as a Python float: the factor a division by the
+    host scalar v becomes on the card."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
 def _lexsort_voxels(points: torch.Tensor, mask: torch.Tensor, leaf: float):
     """Voxel keys of the masked points, sorted lexicographically (unmasked last).
     Returns (order, sorted coords (3, N), sorted points, valid, is_first, seg_id)."""
-    coords = torch.floor(points / leaf).to(torch.int32)
+    coords = torch.floor(points * recip32(leaf)).to(torch.int32)
     coords = torch.where(mask[None, :], coords, _BIG)  # unmasked columns sort last
     order = torch.argsort(coords[2], stable=True)
     order = order[torch.argsort(coords[1][order], stable=True)]
@@ -33,11 +46,17 @@ def _lexsort_voxels(points: torch.Tensor, mask: torch.Tensor, leaf: float):
 
 
 def _segment_means(sp, valid, seg_id, n_out: int):
-    """Per-segment centroids (3, n_out); segments >= n_out are dropped."""
+    """Per-segment centroids (3, n_out); segments >= n_out are dropped.
+
+    The sums run in the sorted points' order on every device: on the card
+    `index_put_(accumulate=True)` sorts its indices (stably, already in
+    order here) and adds each run of one index in order, as the CPU does,
+    where `index_add_`'s atomics would land in any order and move a
+    centroid by float32 ulps from run to run."""
     tgt = torch.where(valid & (seg_id < n_out), seg_id, n_out)
-    seg_sum = torch.zeros((3, n_out + 1), dtype=sp.dtype, device=sp.device).index_add_(1, tgt, sp)
-    seg_cnt = torch.zeros((n_out + 1,), dtype=sp.dtype, device=sp.device).index_add_(0, tgt, torch.ones_like(sp[0]))
-    return seg_sum[:, :n_out] / torch.clamp(seg_cnt[:n_out], min=1.0)[None, :]
+    rows = torch.cat([sp, torch.ones_like(sp[:1])]).T                 # (N, 4): x, y, z, 1
+    acc = sp.new_zeros((n_out + 1, 4)).index_put_((tgt,), rows, accumulate=True)
+    return acc[:n_out, :3].T / torch.clamp(acc[:n_out, 3], min=1.0)[None, :]
 
 
 def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float):
@@ -55,7 +74,7 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float):
     out = torch.cat([points, points.new_zeros((3, 1))], dim=1)
     out[:, first_tgt] = centroid[:, torch.clamp(seg_id, min=0)]
     out_mask = torch.zeros((N + 1,), dtype=torch.bool, device=points.device)
-    out_mask[first_tgt] = True
+    out_mask.index_fill_(0, first_tgt, True)   # a scalar assigned by index would copy it to the card and wait
     return out[:, :N], out_mask[:N]
 
 

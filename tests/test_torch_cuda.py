@@ -473,3 +473,110 @@ def test_lio_update_on_card_matches_cpu(cuda):
     scale = torch.sqrt(torch.outer(torch.diagonal(uc.P), torch.diagonal(uc.P)))
     assert float(((ug.P.cpu() - uc.P) / scale).abs().max()) < 1e-5
     assert ug.P.dtype == torch.float32 and ug.host_syncs == 0 and syncs == 0, syncs
+
+
+def _map_cloud(n, seed, span):
+    g = np.random.default_rng(seed)
+    pts = g.uniform(-span, span, (3, n)).astype(np.float32)
+    pts[2] = g.uniform(-0.5, 2.0, n)
+    return pts, g.uniform(size=n) < 0.9
+
+
+def test_insert_scan_on_card_matches_cpu(cuda):
+    """The 2-D occupancy update (insert_cloud: cloud_to_scan + insert_scan)
+    at the default 1,024^2 grid and 720 beams, three scans from three poses:
+    log-odds within 1e-5 but for edge cells (the card's cos / sin may move a
+    beam's last free cell), at most 0.1 % of the observed cells; no host read."""
+    from pointcloud_slam_tpu_torch.maps import occupancy as occ
+
+    cfg = occ.OccupancyConfig()
+    clouds = [_map_cloud(20_000, 10 + k, 15.0) for k in range(3)]
+    inputs = {dev: [(torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev)) for p, m in clouds]
+              for dev in ("cpu", cuda)}
+
+    def build(dev):
+        grid = occ.create(cfg, device=dev)
+        for k, (pts, mask) in enumerate(inputs[dev]):
+            xy = np.array([0.4 * k - 0.3, 0.25 * k + 0.1], np.float32)
+            grid = occ.insert_cloud(cfg, grid, pts, mask, xy, 0.3)
+        return grid.logodds
+
+    lc = build("cpu").numpy()
+    _count_syncs(lambda: build(cuda))                         # warm-up
+    lg, syncs = _count_syncs(lambda: build(cuda))
+    lg = lg.cpu().numpy()
+    edge = np.abs(lg - lc) > 1e-5
+    observed = (lc != 0) | (lg != 0)
+    assert observed.sum() > 1000 and edge.sum() <= 1e-3 * observed.sum(), (int(edge.sum()), int(observed.sum()))
+    assert syncs == 0, syncs
+
+
+@pytest.mark.parametrize("capacity, n_points", [(1 << 20, 40), (1 << 20, 1500), (1 << 8, 400)])
+def test_insert_cloud_3d_on_card_matches_cpu(cuda, capacity, n_points):
+    """The 3-D hash occupancy on the card and on the CPU: the same winner
+    for every slot (the last valid writer of a batch), so the same maps slot
+    for slot and by voxel, from a collision-free map to a 256-slot one that
+    every batch fights over; every slot's fingerprint is its own
+    coordinates'; the collision counts equal; no host read."""
+    from pointcloud_slam_tpu_torch.maps import tiled
+    from pointcloud_slam_tpu_torch.ops.voxel_grid import _fingerprint
+
+    cfg = tiled.VoxelOccConfig(capacity=capacity, n_free_steps=16)
+    clouds = [_map_cloud(n_points, 20 + k, 6.0) for k in range(3)]
+    inputs = {dev: [(torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev)) for p, m in clouds]
+              for dev in ("cpu", cuda)}
+
+    def build(dev):
+        m = tiled.create_3d(cfg, device=dev)
+        col = torch.zeros((), dtype=torch.int64, device=dev)
+        for k, (pts, mask) in enumerate(inputs[dev]):
+            m = tiled.insert_cloud_3d(cfg, m, pts, mask, (0.3 * k, -0.2, 0.9), col)
+        return m, col
+
+    mc, cc = build("cpu")
+    _count_syncs(lambda: build(cuda))                         # warm-up
+    (mg, cg), syncs = _count_syncs(lambda: build(cuda))
+    assert syncs == 0, syncs
+    assert int(cg) == int(cc) and (int(cc) == 0) == (capacity == 1 << 20 and n_points == 40), int(cc)
+    assert torch.equal(mg.fp.cpu(), mc.fp) and torch.equal(mg.keys.cpu(), mc.keys)
+    torch.testing.assert_close(mg.logodds.cpu(), mc.logodds, rtol=0, atol=1e-5)
+    filled = mg.fp != 0
+    assert bool((_fingerprint(mg.keys[0], mg.keys[1], mg.keys[2])[filled] == mg.fp[filled]).all())
+
+
+def test_timer_adds_no_sync(cuda):
+    """Timer.evaluate on the card records CUDA events and waits for nothing;
+    mean resolves them after one synchronize."""
+    from pointcloud_slam_tpu_torch.utils.timer import Timer
+
+    a = torch.randn(2048, 2048, device=cuda)
+    Timer.reset()
+    _count_syncs(lambda: Timer.evaluate(lambda: a @ a, "warm"))   # warm-up
+    _, syncs = _count_syncs(lambda: [Timer.evaluate(lambda: a @ a, "matmul") for _ in range(5)])
+    assert syncs == 0, syncs
+    assert Timer.mean("matmul") > 0
+    Timer.reset()
+
+
+@pytest.mark.parametrize("n", [20_000, 1 << 18])
+def test_voxel_downsample_on_card_matches_cpu(cuda, n):
+    """The centroid voxel filter at a LIO frame's and at the maps app's chunk
+    size: the same voxels in the same order, and centroids equal to the bit
+    (voxel keys by the float32 reciprocal of the leaf on both devices; sums
+    in sorted order on both); no host read."""
+    from pointcloud_slam_tpu_torch import ops
+
+    g = np.random.default_rng(n)
+    pts = g.uniform(-15, 15, (3, n)).astype(np.float32)
+    pts[:, : n // 4] = np.round(pts[:, : n // 4] / 0.2) * 0.2        # a quarter on voxel bounds
+    mask = g.uniform(size=n) < 0.9
+    outs = {}
+    for dev in ("cpu", cuda):
+        p, m = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+        _count_syncs(lambda: ops.voxel_downsample(p, m, 0.2))          # warm-up
+        (out, om), syncs = _count_syncs(lambda: ops.voxel_downsample(p, m, 0.2))
+        outs[dev] = (out.cpu(), om.cpu(), syncs)
+    (oc, mc, _), (og, mg, syncs) = outs["cpu"], outs[cuda]
+    assert torch.equal(mg, mc) and int(mc.sum()) > 1000
+    assert torch.equal(og[:, mg], oc[:, mc])
+    assert syncs == 0, syncs
