@@ -78,7 +78,9 @@ def build_config(args):
         if y.get("ivox_nearby_type") is not None:
             grid_kw["nearby"] = {6: 7, 18: 19, 26: 27}.get(int(y["ivox_nearby_type"]), 7)
         if y.get("ivox_node_phc_order") is not None:
-            raise SystemExit("ivox_node_phc_order: the PHC node mode is not ported yet")
+            # PHC node mode (IVOX_NODE_TYPE_PHC, ivox3d_node.hpp): sub-voxel
+            # Hilbert centroid merge on insert
+            kw["phc_order"] = int(y["ivox_node_phc_order"])
         if "extrinsic_est_en" in m:
             kw["extrinsic_est"] = bool(m["extrinsic_est_en"])
         for key in ("acc_cov", "gyr_cov", "b_acc_cov", "b_gyr_cov"):

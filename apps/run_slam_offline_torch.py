@@ -139,8 +139,9 @@ def main(argv=None):
             pad[:, :pts.shape[1]] = pts
             m = torch.from_numpy(np.arange(cap) < pts.shape[1]).to(device)
             cpts, cmask, spts, smask = features.front_end(pcfg, fcfg, torch.from_numpy(pad).to(device), m)
-            c, cm = features.fixed_size(cpts, cmask, cfg.n_corner)
-            s, sm = features.fixed_size(spts, smask, cfg.n_surf)
+            # spread over every ring: the first n of a ring-ordered image are its lowest rings
+            c, cm = features.spread_size(cpts, cmask, cfg.n_corner)
+            s, sm = features.spread_size(spts, smask, cfg.n_surf)
             stamp = float(cloud.get("stamp", k * 0.1))
             if t0_stamp is None:
                 t0_stamp = stamp

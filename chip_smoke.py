@@ -64,8 +64,11 @@ kernel on them against its plain PyTorch version. Phases:
      bag and Python bag sources must build the same frames; its three
      replays, the SLAM app on the bag and the localization app on the
      dataset against the mapped PCD must run to finite trajectories (their
-     gaps and errors against ground truth reported); the C++ oracle's
-     esti_plane beside plane_fit on the card
+     gaps and errors against ground truth reported); the SLAM app on a
+     ring-structured bag (io.synthetic.write_ring_bag: 30 sweeps of a
+     16 x 1,800 spinning LiDAR ray-cast in a hall) within 0.10 m of the
+     ground truth at every frame and keyframe; the C++ oracle's esti_plane
+     beside plane_fit on the card
  12. map products (apps/construct_full_map_torch.py): on the keyframes the
      SLAM app saved in phase 9, every product, then config 8's localization
      (64 frames) against the feature tiles it wrote, through the
@@ -79,6 +82,20 @@ kernel on them against its plain PyTorch version. Phases:
      listed, .bt leaves); the mapping app with --auto_grid --time_log_file
      on phase 11's dataset and the tuned LIO under the timer (no added
      sync). K1 and K2 must stay at 0 launches
+ 13. deployed modes: phase 3's tuned LIO with the PHC node (phc_order=2;
+     ATE gates as phase 3's; frames/s, syncs and launches a frame) and
+     phc_merge on one frame's batch, card against CPU (equal keys and
+     centroids); apps/run_mapping_online_torch.py at 20,000 points for 20
+     frames against the stream's trajectory (the LIO gates);
+     tools/soak_online_torch.py at 20,000 points and 10 Hz for 20 s (frames,
+     drops, latency, queue trend; gate: ATE) and
+     tools/soak_localization_torch.py for 20 s at config 8's shapes (gates:
+     the injected loss recovered, final error < 0.10 m); 60 frames of the
+     synthetic KITTI street at 30,000 points through apps/run_kitti_torch.py
+     with --algo icp, ndt and vgicp (frames/s; gates: KITTI_MAX_ERR_M); the
+     session CLI (start --mode fast --run --synthetic 20, save-map,
+     pub-occ-map, stop) and its files. K1 and K2 must stay at 0 launches
+ 14. done
 
 Every timed K1 / K2 shape prints what the wrapper's plan ran it with: the
 instance (list length), R (queries per thread, always 1) and S (database
@@ -835,6 +852,8 @@ LOC_FRAMES = 64            # bench.py config 8's chain length (bench.py:605)
 LOC_NDT_FRAMES = 16        # run_localization's synthetic replay, 16 frames
 LOC_NDT_POINTS = 8192      # run_localization's --n_points default
 REPLAY_MAX_ERR_M = 0.05    # each recorded replay's LIO trajectory against gt_traj.txt
+RING_BAG_FRAMES = 30       # io.synthetic.write_ring_bag's sweeps (16 x 1,800 rays each) ...
+RING_BAG_MAX_ERR_M = 0.10  # ... and the SLAM app's bound on them at every frame and keyframe
 
 
 def loc_config():
@@ -1122,12 +1141,16 @@ def run_recorded(dev, out_dir):
     tools/make_dataset_torch.py, the mapping app's three replays of it
     (frames compared in this process, then the apps run), SLAM on the bag,
     localization on the dataset against the mapped PCD."""
+    from pointcloud_slam_tpu_torch.io import synthetic
+
     seq = os.path.join(out_dir, "smoke_lio")
     t0 = time.perf_counter()
     mk = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "make_dataset_torch.py"), "--out", seq,
                          "--frames", "20", "--bag"], capture_output=True, text=True, timeout=600, cwd=ROOT)
     check(mk.returncode == 0, f"make_dataset_torch failed ({mk.returncode}):\n{mk.stdout}\n{mk.stderr}")
     res = dict(dataset_s=time.perf_counter() - t0, bag_mib=os.path.getsize(os.path.join(seq, "data.bag")) / 2 ** 20)
+    ring_bag = os.path.join(out_dir, "smoke_ring.bag")
+    _, ring_R, ring_t = synthetic.write_ring_bag(ring_bag, n_frames=RING_BAG_FRAMES)
     res["frames"] = compare_replays(dev, seq)
     bag = os.path.join(seq, "data.bag")
     trajs = {name: os.path.join(out_dir, f"smoke_replay_{name}.txt") for name in ("dir", "native", "python")}
@@ -1138,7 +1161,9 @@ def run_recorded(dev, out_dir):
         "native": [mapping, "--bag_file", bag, "--bag_reader", "native", "--traj_log_file", trajs["native"]],
         "python": [mapping, "--bag_file", bag, "--bag_reader", "python", "--traj_log_file", trajs["python"]],
         "slam": [os.path.join(ROOT, "apps", "run_slam_offline_torch.py"), "--bag_file", bag, "--out_dir",
-                 os.path.join(out_dir, "smoke_slam_bag")]}, timeout=600)
+                 os.path.join(out_dir, "smoke_slam_bag")],
+        "slam_ring": [os.path.join(ROOT, "apps", "run_slam_offline_torch.py"), "--bag_file", ring_bag, "--out_dir",
+                      os.path.join(out_dir, "smoke_slam_ring")]}, timeout=600)
     # each replay is held to the ground truth, not to the others within 1e-3 m:
     # the three sources' point times differ by up to one float32 ulp, which
     # can make the update's convergence test (1e-3 a state dimension) stop an
@@ -1155,6 +1180,18 @@ def run_recorded(dev, out_dir):
     gap = {name: float(np.abs(rows[name][:, 1:4] - rows["dir"][:, 1:4]).max()) for name in ("native", "python")}
     slam_rows = np.loadtxt(os.path.join(out_dir, "smoke_slam_bag", "traj_tum.txt"))
     check(slam_rows.shape == (20, 8) and np.isfinite(slam_rows).all(), "SLAM bag replay: trajectory")
+    # SLAM on a ring-structured bag, held to the ground truth at every frame and keyframe
+    ring_gt = np.einsum("ji,nj->ni", ring_R[0], ring_t - ring_t[0])
+    ring_est = np.loadtxt(os.path.join(out_dir, "smoke_slam_ring", "traj_tum.txt"))[:, 1:4]
+    ring_kf = np.loadtxt(os.path.join(out_dir, "smoke_slam_ring", "poses_kitti.txt")).reshape(-1, 3, 4)[:, :, 3]
+    check(ring_est.shape == ring_gt.shape, f"SLAM ring bag: trajectory {ring_est.shape}")
+    ring_err = np.linalg.norm(ring_est - ring_gt, axis=1)
+    kf_frame = [int(np.argmin(np.linalg.norm(ring_est - p, axis=1))) for p in ring_kf]
+    kf_err = np.linalg.norm(ring_kf - ring_gt[kf_frame], axis=1)
+    res["slam_ring_bag"] = dict(frames=len(ring_est), keyframes=len(ring_kf), max_err_m=float(ring_err.max()),
+                                keyframe_max_err_m=float(kf_err.max()), gate_m=RING_BAG_MAX_ERR_M)
+    check(ring_err.max() < RING_BAG_MAX_ERR_M and kf_err.max() < RING_BAG_MAX_ERR_M,
+          f"SLAM ring bag: {res['slam_ring_bag']}")
     res.update(replay_err_vs_gt_m=err, replay_traj_gap_m=gap,
                apps={name: so.strip().splitlines()[0] for name, (_, so, _) in apps.items()})
     loc_app = run_apps({"localization": [os.path.join(ROOT, "apps", "run_localization_torch.py"), "--map_pcd",
@@ -1430,6 +1467,183 @@ def mapping_timer(dev, seq, out_dir, cfg, frames, gt, tuned):
     return res
 
 
+DEPLOY_ONLINE_FRAMES = 20      # the online mapper's frames at N_POINTS
+DEPLOY_SOAK_S = 20             # each soak's paced seconds (10 Hz)
+DEPLOY_KITTI_FRAMES = 60       # the synthetic street at the KITTI app's default width ...
+DEPLOY_KITTI_POINTS = 30_000   # ... of this many points a frame
+# KITTI gates: the largest position error over the 60 frames (48 m of travel)
+# against poses.txt, 1.5 x what the app measured on the CPU on the same
+# sequence (ICP 1.077 m, NDT 0.348, VGICP 0.257; frame-to-frame drift)
+KITTI_MAX_ERR_M = {"icp": 1.6, "ndt": 0.55, "vgicp": 0.40}
+
+
+def phc_lio(dev, cfg, frames, gt):
+    """Phase 13, PHC LIO: phase 3's tuned LIO with phc_order=2 (ATE gates as
+    phase 3's), frames/s, host syncs a frame, launches and GPU busy a frame;
+    phc_merge on one frame's batch (frame 10, both output modes): keys,
+    masks and centroids of the card equal to the CPU's."""
+    import dataclasses
+
+    import torch
+
+    from pointcloud_slam_tpu_torch.models import lio
+    from pointcloud_slam_tpu_torch.ops import phc
+
+    cfg_phc = dataclasses.replace(cfg, phc_order=2)
+    state, res = run_lio(cfg_phc, frames, gt, dev)
+    check(res["ate_mean_m"] < 0.2 and res["ate_final_m"] < 0.25, f"PHC LIO ATE gates: {res}")
+    launches, busy, wall, top = profile_launches(lambda: lio.lio_step(cfg_phc, state, frames[-1]))
+    pts, mask, r = frames[10].pts, frames[10].pt_mask, cfg.grid.resolution
+    (vg, hg), (vc, hc) = phc._phc_key(pts, mask, r, 2), phc._phc_key(pts.cpu(), mask.cpu(), r, 2)
+    check(torch.equal(vg.cpu(), vc) and torch.equal(hg.cpu(), hc), "phc keys: the card's differ from the CPU's")
+    merged = {}
+    for curve in (False, True):
+        (og, mg), (oc, mc) = (phc.phc_merge(pts, mask, r, 2, curve_output=curve),
+                              phc.phc_merge(pts.cpu(), mask.cpu(), r, 2, curve_output=curve))
+        check(torch.equal(mg.cpu(), mc) and torch.equal(og.cpu()[:, mc], oc[:, mc]),
+              f"phc_merge (curve_output={curve}): the card differs from the CPU")
+        merged[f"curve_output_{curve}"] = int(mc.sum())
+    return dict(lio_phc=res, launches_per_frame=launches, gpu_busy_ms_per_frame=busy, profiled_frame_ms=wall,
+                top_device_ms=top, phc_merge_card_vs_cpu="equal", merged_of=int(mask.sum()), merged=merged)
+
+
+def last_json(stdout):
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def online_paths(out_dir, smi):
+    """Phase 13: the online mapper app at N_POINTS for DEPLOY_ONLINE_FRAMES
+    frames against the stream's own trajectory (the LIO gates from frame 5),
+    then the live-driver soak at N_POINTS and 10 Hz for DEPLOY_SOAK_S seconds
+    (gate: its ATE; latency and drops are findings) and the localization
+    soak at config 8's shapes (gates: the injected loss recovered, final
+    error < 0.10 m)."""
+    from pointcloud_slam_tpu_torch.io import synthetic
+
+    traj = os.path.join(out_dir, "smoke_online.txt")
+    app = run_apps({"online": [os.path.join(ROOT, "apps", "run_mapping_online_torch.py"), "--frames",
+                               str(DEPLOY_ONLINE_FRAMES), "--n_points", str(N_POINTS), "--traj_log_file", traj]},
+                   timeout=600)
+    t = synthetic.make_imu_trajectory(DEPLOY_ONLINE_FRAMES, 20, 0.1, seed=0)
+    gt_pos = t["pos"][20::20][:DEPLOY_ONLINE_FRAMES]
+    est = np.loadtxt(traj)[:, 1:4]
+    check(est.shape == gt_pos.shape and np.isfinite(est).all(), f"online mapper: trajectory {est.shape}")
+    err = np.linalg.norm(est - (gt_pos - gt_pos[0]), axis=1)[5:]
+    res = dict(online_mapper=dict(frames=len(est), ate_mean_m=float(err.mean()), ate_final_m=float(err[-1]),
+                                  out=next(ln for ln in app["online"][1].splitlines() if " frames in " in ln)))
+    check(err.mean() < 0.2 and err[-1] < 0.25, f"online mapper ATE gates: {res['online_mapper']}")
+    soak = run_apps({"soak": [os.path.join(ROOT, "tools", "soak_online_torch.py"), "--n_points", str(N_POINTS),
+                              "--seconds", str(DEPLOY_SOAK_S)]}, timeout=600)
+    res["soak_online"] = dict(last_json(soak["soak"][1]), nvidia_smi=smi)
+    so = res["soak_online"]
+    check(so["ate_mean_m"] < 0.2 and so["ate_final_m"] < 0.25, f"online soak ATE gates: {so}")
+    loc = run_apps({"soak": [os.path.join(ROOT, "tools", "soak_localization_torch.py"), "--seconds",
+                             str(DEPLOY_SOAK_S)]}, timeout=600)
+    res["soak_localization"] = dict(last_json(loc["soak"][1]), nvidia_smi=smi)
+    sl = res["soak_localization"]
+    check(sl["losses"] >= 1 and sl["recoveries"] == sl["losses"] and sl["err_final_m"] < 0.10,
+          f"localization soak: loss not recovered or final error >= 0.10 m: {sl}")
+    return res
+
+
+def kitti_errors(poses_file, est_file):
+    """(final, max) position error of a KITTI pose file against the sequence's
+    poses.txt, expressed in its first frame."""
+    gt = np.loadtxt(poses_file).reshape(-1, 3, 4)
+    est = np.loadtxt(est_file).reshape(-1, 3, 4)
+    rel = np.einsum("ji,nj->ni", gt[0, :, :3], gt[:, :, 3] - gt[0, :, 3])
+    e = np.linalg.norm(est[:, :, 3] - rel, axis=1)
+    return float(e[-1]), float(e.max())
+
+
+def kitti_paths(out_dir):
+    """Phase 13: tools/make_dataset_torch.py kitti (60 frames of 30,000 points),
+    then apps/run_kitti_torch.py with --algo icp, ndt and vgicp, one after
+    another: frames/s and the final and largest error against poses.txt
+    (gates: KITTI_MAX_ERR_M)."""
+    seq = os.path.join(out_dir, "smoke_kitti")
+    t0 = time.perf_counter()
+    mk = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "make_dataset_torch.py"), "kitti", "--out", seq,
+                         "--frames", str(DEPLOY_KITTI_FRAMES), "--points", str(DEPLOY_KITTI_POINTS)],
+                        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    check(mk.returncode == 0, f"make_dataset_torch kitti failed ({mk.returncode}):\n{mk.stdout}\n{mk.stderr}")
+    res = dict(dataset_s=time.perf_counter() - t0)
+    for algo in ("icp", "ndt", "vgicp"):
+        out = os.path.join(out_dir, f"smoke_kitti_{algo}.txt")
+        app = run_apps({algo: [os.path.join(ROOT, "apps", "run_kitti_torch.py"), seq, "--algo", algo, "--out", out]},
+                       timeout=600)
+        done = next(ln for ln in app[algo][1].splitlines() if ln.startswith("done:"))
+        final, worst = kitti_errors(os.path.join(seq, "poses.txt"), out)
+        res[algo] = dict(fps=float(done.split(", ")[1].split()[0]), final_err_m=final, max_err_m=worst)
+        check(worst < KITTI_MAX_ERR_M[algo], f"KITTI {algo}: largest error {worst} m (gate {KITTI_MAX_ERR_M[algo]} m)")
+    return res
+
+
+def _alive(pid):
+    """Whether a process runs (a zombie waiting for its reaper counts as ended)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def mapping_session(dev, out_dir):
+    """Phase 13: apps/mapping_session_torch.py start --mode fast --run
+    --synthetic 20 (the port's mapping app on the card, launched by the
+    session), then the session's occupancy product from its jueying.pcd
+    (maps.occupancy on the card) and save-map, pub-occ-map and stop. Holds
+    the session's files: the trajectory (20 rows), time.csv, jueying.pcd and
+    the published PGM/YAML."""
+    import shutil
+
+    import torch
+
+    from pointcloud_slam_tpu_torch.io import pcd
+    from pointcloud_slam_tpu_torch.maps import occupancy as occ
+
+    root = os.path.join(out_dir, "smoke_session")
+    shutil.rmtree(root, ignore_errors=True)
+    cli = [sys.executable, os.path.join(ROOT, "apps", "mapping_session_torch.py"), "--root", root]
+
+    def run(*args):
+        r = subprocess.run([*cli, *args], capture_output=True, text=True, timeout=300, cwd=ROOT)
+        check(r.returncode == 0, f"mapping session {args[0]} failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+        return r.stdout
+
+    t0 = time.perf_counter()
+    run("start", "--mode", "fast", "--run", "--synthetic", "20")
+    session = os.path.realpath(os.path.join(root, "system", "maps", "default"))
+    with open(os.path.join(session, "details", "pids")) as f:
+        pids = [int(x) for x in f.read().split()]
+    while any(_alive(p) for p in pids) and time.perf_counter() - t0 < 600:
+        time.sleep(0.5)
+    run_s = time.perf_counter() - t0
+    details = os.path.join(session, "details")
+    with open(os.path.join(details, "mapping.log")) as f:
+        log = f.read()
+    traj_file, csv, map_pcd = (os.path.join(details, "traj.txt"), os.path.join(details, "time.csv"),
+                               os.path.join(session, "jueying.pcd"))
+    check(all(os.path.exists(p) for p in (traj_file, csv, map_pcd)), f"session files missing; log:\n{log}")
+    rows = np.loadtxt(traj_file)
+    check(rows.shape == (20, 8) and np.isfinite(rows).all(), f"session trajectory {rows.shape}")
+    pts = pcd.read_pcd_xyz(map_pcd)
+    cfg = occ.OccupancyConfig(size=512, resolution=0.1, origin=-25.6)
+    grid = occ.insert_cloud(cfg, occ.create(cfg, device=dev), torch.from_numpy(np.ascontiguousarray(pts.T)).to(dev),
+                            torch.ones(len(pts), dtype=torch.bool, device=dev), (0.0, 0.0), 0.0)
+    occ.save_pgm(cfg, grid, os.path.join(details, "occ"))
+    run("save-map")
+    pub = run("pub-occ-map")
+    stop = run("stop")
+    published = [os.path.join(root, "system", "map", "jueying" + ext) for ext in (".pgm", ".yaml")]
+    check(all(os.path.exists(p) for p in published), "session: the published PGM/YAML are missing")
+    grid_pub, _ = occ.load_pgm(published[0][:-4])
+    return dict(session_s=run_s, traj_rows=int(rows.shape[0]), map_points=int(len(pts)),
+                csv_bytes=os.path.getsize(csv), published_cells=int(grid_pub.size),
+                occupied_cells=int((grid_pub == 100).sum()), publish=pub.strip().splitlines()[0],
+                stop=stop.strip().splitlines()[-1], app=log.strip().splitlines()[0] if log.strip() else "")
+
+
 def main():
     import torch
 
@@ -1616,9 +1830,22 @@ def main():
     k1_k2 = [bf_knn.knn.launches, bf_knn.nearest_neighbor.launches]
     phase(12, "mapping app --auto_grid --time_log_file, LIO under the timer", k1_k2_launches=k1_k2, **timer)
     check(k1_k2 == [0, 0], f"the maps path launched K1/K2 {k1_k2} times")
+
+    # ---- 13. deployed modes: PHC LIO, online mapper and soaks, KITTI, session ----
+    bf_knn.knn.launches = bf_knn.nearest_neighbor.launches = 0
+    phase(13, "PHC LIO (tuned, phc_order=2, 50 frames of 20,000 points)", **phc_lio(dev, cfg, frames, gt))
+    phase(13, f"online mapper ({DEPLOY_ONLINE_FRAMES} frames) and soaks ({DEPLOY_SOAK_S} s at 10 Hz)",
+          **online_paths(str(_cuda.BUILD_DIR), smi))
+    phase(13, f"KITTI ({DEPLOY_KITTI_FRAMES} frames of {DEPLOY_KITTI_POINTS} points)",
+          nvidia_smi=smi, **kitti_paths(str(_cuda.BUILD_DIR)))
+    session = mapping_session(dev, str(_cuda.BUILD_DIR))
+    k1_k2 = [bf_knn.knn.launches, bf_knn.nearest_neighbor.launches]
+    phase(13, "mapping session (start --mode fast --run --synthetic 20, save-map, pub-occ-map, stop)",
+          k1_k2_launches=k1_k2, **session)
+    check(k1_k2 == [0, 0], f"the deployed modes launched K1/K2 {k1_k2} times")
     check("jax" not in sys.modules and not any(m.split(".")[0] == "pointcloud_slam_tpu" for m in sys.modules),
           "the port imported jax or the JAX package")
-    phase(13, "done", wall_s=time.perf_counter() - t_script)
+    phase(14, "done", wall_s=time.perf_counter() - t_script)
 
     k1_bound, k1_bound_by = knn_bound_ms(pts.shape[1], pts.shape[1], 20)
     print(json.dumps({"kernels": [

@@ -1,6 +1,6 @@
 """Batched geometric fitting primitives (port of `pointcloud_slam_tpu/geom/fit.py`):
-plane fit, LOAM line fit and the closed-form 3x3 symmetric eigendecomposition
-and solve.
+plane fit, LOAM line fit, the closed-form 3x3 symmetric eigendecomposition
+and solve, and the fixed-sweep Jacobi `eigh_small` for small matrices.
 
 Point blocks are (3, K, N) — coordinate axis leading, the big point axis
 minor. All solves are closed-form component arithmetic on (N,) tensors; no
@@ -107,6 +107,54 @@ def eigh3x3_soa(a00, a01, a02, a11, a12, a22):
     vals = torch.stack([lmin, lmid, lmax], dim=0)
     vecs = torch.stack([torch.stack(v0, 0), torch.stack(v1, 0), torch.stack(v2, 0)], dim=0)
     return vals, vecs
+
+
+def eigh3x3(A: torch.Tensor):
+    """AoS wrapper: (..., 3, 3) -> (vals (..., 3) ascending, vecs (..., 3, 3)
+    with the eigenvectors as columns, the torch.linalg.eigh convention)."""
+    vals, vecs = eigh3x3_soa(A[..., 0, 0], A[..., 0, 1], A[..., 0, 2], A[..., 1, 1], A[..., 1, 2], A[..., 2, 2])
+    # vals (3, ...) -> (..., 3); vecs[which][comp] -> (..., comp, which)
+    return torch.movedim(vals, 0, -1), torch.movedim(torch.movedim(vecs, 0, -1), 0, -2)
+
+
+def eigh_small(A: torch.Tensor, sweeps: int = 6):
+    """Eigendecomposition of ONE small (n x n, n <= ~8) symmetric matrix by
+    unrolled cyclic Jacobi rotations: (vals ascending, vecs as columns).
+
+    For decompositions that must be differentiated: the `eigh` backward has
+    1 / (w_i - w_j) terms that overflow at (near-)repeated eigenvalues, while
+    here each angle is 0.5 * atan2(2 a_pq, a_pp - a_qq), whose derivative
+    stays finite unless the pair is exactly (0, 0). The rotations are applied
+    element for element as in the JAX package (column update, then row
+    update, out of place through masks, so autograd sees every step). It
+    does not read back to the host, unlike `torch.linalg.eigh`.
+    """
+    n = A.shape[-1]
+    A = (A + A.T) * 0.5
+    eye = torch.eye(n, dtype=torch.bool, device=A.device)
+    V = eye.to(A.dtype)
+    for _ in range(sweeps):
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                theta = 0.5 * torch.atan2(2.0 * A[p, q], A[p, p] - A[q, q])
+                c, s = torch.cos(theta), torch.sin(theta)
+                cp, cq = eye[p][None, :], eye[q][None, :]        # column p / q selectors
+                rp, rq = eye[p][:, None], eye[q][:, None]        # row p / q selectors
+                col_p, col_q = A[:, p:p + 1], A[:, q:q + 1]
+                A = torch.where(cp, c * col_p + s * col_q, torch.where(cq, c * col_q - s * col_p, A))
+                row_p, row_q = A[p:p + 1, :], A[q:q + 1, :]
+                A = torch.where(rp, c * row_p + s * row_q, torch.where(rq, c * row_q - s * row_p, A))
+                v_p, v_q = V[:, p:p + 1], V[:, q:q + 1]
+                V = torch.where(cp, c * v_p + s * v_q, torch.where(cq, c * v_q - s * v_p, V))
+        A = (A + A.T) * 0.5  # contain drift between sweeps
+    diag = torch.diagonal(A)
+    order = torch.argsort(diag, stable=True)
+    return diag[order], V[:, order]
+
+
+def eigvalsh_small(A: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
+    """Ascending eigenvalues of one small symmetric matrix (see eigh_small)."""
+    return eigh_small(A, sweeps=sweeps)[0]
 
 
 def solve3x3_sym(a00, a01, a02, a11, a12, a22, bx, by, bz):

@@ -38,6 +38,10 @@ class LIOConfig:
     map_leaf: float = 0.5            # filter_size_map_min
     scan_budget: int = 10240         # points carried into the iterated update (0 = no compaction)
     insert_budget: int = 6144        # gated map-insert candidates per frame (0 = no compaction)
+    # PHC node mode (ivox_node_type phc, ivox3d_node.hpp IVoxNodePhc): when
+    # > 0, map-insert candidates are centroid-merged per Hilbert sub-cube of
+    # edge resolution / 2^order and stored in curve order. 0 = linear node.
+    phc_order: int = 0
     max_iterations: int = 4          # options::NUM_MAX_ITERATIONS
     epsi: float = 0.001              # convergence limit per error dim
     # reference semantics (laser_mapping.cc:618): re-run the NN search after a
@@ -241,7 +245,13 @@ def lio_step(cfg: LIOConfig, s: LIOState, frame: LIOFrame):
         pw = R_wl @ pts_d + t_wl[:, None]
         _, _, nbrs, d2, cnt = upd.cache
         ins_mask = _map_insert_mask(cfg, pw, mask_d, nbrs, d2, cnt)
-        if cfg.insert_budget:
+        if cfg.phc_order:
+            # the curve-ordered centroids are packed at the front: slicing
+            # replaces ops.compact
+            pw, ins_mask = ops.phc_merge(pw, ins_mask, cfg.grid.resolution, cfg.phc_order, curve_output=True)
+            if cfg.insert_budget:
+                pw, ins_mask = pw[:, : cfg.insert_budget], ins_mask[: cfg.insert_budget]
+        elif cfg.insert_budget:
             pw, ins_mask = ops.compact(pw, ins_mask, cfg.insert_budget)
         grid = ops.insert(cfg.grid, s.grid, pw, ins_mask)
         n_eff = torch.sum(mask_d.to(torch.int32))

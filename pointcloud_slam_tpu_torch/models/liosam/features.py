@@ -130,3 +130,26 @@ def fixed_size(pts: torch.Tensor, mask: torch.Tensor, n: int):
     idx = torch.argsort((~mask).to(torch.uint8), stable=True)[:n]
     m = mask[idx]
     return torch.where(m, pts[:, idx], 0.0), m
+
+
+def spread_size(pts: torch.Tensor, mask: torch.Tensor, n: int):
+    """n masked points spread evenly over the masked ones in index order (the
+    j-th of n is the floor(j * count / n)-th masked point), as a fixed-shape
+    (3, n) cloud and its mask; all of them, as `fixed_size` gives them, when
+    there are no more than n. On the device, with no host read.
+
+    A range image's features come ring by ring, so `fixed_size`'s first n
+    hold the lowest rings only: on a spinning LiDAR's scan that is one or two
+    floor arcs, whose 5-point neighbourhoods are near collinear and whose
+    plane fits let scan-to-map drift in z. Spread over every ring, the same
+    count tracks (tests/test_torch_replay.py's ring-structured bag)."""
+    N = mask.shape[0]
+    if N < n:
+        pts = torch.cat([pts, pts.new_zeros((3, n - N))], dim=1)
+        mask = torch.cat([mask, mask.new_zeros(n - N)])
+    order = torch.argsort((~mask).to(torch.uint8), stable=True)       # masked points first, in order
+    count = torch.sum(mask)
+    j = torch.arange(n, device=mask.device)
+    idx = order.index_select(0, (j * torch.clamp(count, min=n)) // n)
+    m = j < count
+    return torch.where(m, pts[:, idx], 0.0), m

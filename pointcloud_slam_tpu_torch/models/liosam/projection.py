@@ -10,6 +10,10 @@ The image is dense: a scatter-min of the range into one extra drop slot,
 then each cell's winner (the point whose range equals the cell's minimum)
 writes its coordinates. Where two points of one cell have exactly equal
 ranges, which one writes is unspecified here, as in the JAX package.
+
+Rows and columns multiply by float32 reciprocals (`recip32`), as jitted XLA
+folds the JAX package's `x / c * H` into `x * (H * (1 / c))`, so a point on a
+column bound gets the same column on every device and in jitted JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ...ops.downsample import recip32
 
 _INF = 3.0e38
 
@@ -49,7 +55,7 @@ def rows_from_elevation(cfg: ProjectionConfig, points: torch.Tensor) -> torch.Te
     r_xy = torch.sqrt(points[0] ** 2 + points[1] ** 2)
     elev = torch.rad2deg(torch.atan2(points[2], r_xy))
     step = (cfg.fov_up_deg - cfg.fov_down_deg) / max(cfg.n_scan - 1, 1)
-    return torch.round((elev - cfg.fov_down_deg) / step).to(torch.int32)
+    return torch.round((elev - cfg.fov_down_deg) * recip32(step)).to(torch.int32)
 
 
 def project(cfg: ProjectionConfig, points: torch.Tensor, mask: torch.Tensor, rows=None) -> RangeImage:
@@ -59,7 +65,7 @@ def project(cfg: ProjectionConfig, points: torch.Tensor, mask: torch.Tensor, row
     if rows is None:
         rows = rows_from_elevation(cfg, points)
     ang = torch.atan2(points[1], points[0])  # [-pi, pi]
-    col = torch.remainder(torch.floor((math.pi - ang) / (2.0 * math.pi) * H).to(torch.int32), H)
+    col = torch.remainder(torch.floor((math.pi - ang) * recip32(2.0 * math.pi, H)).to(torch.int32), H)
     ok = mask & (r >= cfg.min_range) & (r <= cfg.max_range) & (rows >= 0) & (rows < S)
     flat = torch.where(ok, rows.to(torch.int64) * H + col, S * H)
     img = torch.full((S * H + 1,), _INF, dtype=points.dtype, device=points.device)

@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from ...ops.downsample import recip32
+
 
 @dataclasses.dataclass(frozen=True)
 class ScanContextConfig:
@@ -43,8 +45,9 @@ def make_descriptor(cfg: ScanContextConfig, points: torch.Tensor, mask: torch.Te
     x, y, z = points[..., 0, :], points[..., 1, :], points[..., 2, :]
     rho = torch.sqrt(x * x + y * y)
     theta = torch.atan2(y, x) + math.pi  # [0, 2pi)
-    ring = torch.clamp((rho / cfg.max_radius * R).to(torch.int64), max=R - 1)
-    sector = torch.clamp((theta / (2 * math.pi) * S).to(torch.int64), max=S - 1)
+    # bins by float32 reciprocals: jitted XLA folds `x / c * R` into x * (R * (1 / c))
+    ring = torch.clamp((rho * recip32(cfg.max_radius, R)).to(torch.int64), max=R - 1)
+    sector = torch.clamp((theta * recip32(2 * math.pi, S)).to(torch.int64), max=S - 1)
     ok = mask & (rho < cfg.max_radius)
     flat = torch.where(ok, ring * S + sector, R * S)
     desc = torch.full(points.shape[:-2] + (R * S + 1,), -1.0e9, dtype=points.dtype, device=points.device)

@@ -21,10 +21,11 @@ import torch
 _BIG = torch.iinfo(torch.int32).max
 
 
-def recip32(v: float) -> float:
+def recip32(v: float, scale: float = 1.0) -> float:
     """1 / v in float32, as a Python float: the factor a division by the
-    host scalar v becomes on the card."""
-    return float(np.float32(1.0) / np.float32(v))
+    host scalar v becomes on the card. With `scale`, the float32 product
+    scale * (1 / v): jitted XLA folds `x / v * scale` into x times it."""
+    return float(np.float32(scale) * (np.float32(1.0) / np.float32(v)))
 
 
 def _lexsort_voxels(points: torch.Tensor, mask: torch.Tensor, leaf: float):
@@ -109,3 +110,11 @@ def compact(points: torch.Tensor, mask: torch.Tensor, budget: int):
     n_valid = torch.sum(mask)
     out_mask = torch.arange(budget, device=points.device) < n_valid
     return out, out_mask
+
+
+def random_decimate(points: torch.Tensor, mask: torch.Tensor, every_n):
+    """Keep every n-th masked point (reference point_filter_num semantics,
+    pointcloud_preprocess.cc decimation). points (3, N) -> (points, keep)."""
+    idx = torch.cumsum(mask.to(torch.int32), dim=0) - 1
+    keep = mask & (torch.remainder(idx, every_n) == 0)
+    return points, keep

@@ -30,6 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .downsample import recip32
+
 _INF = float(np.float32(3.0e38))
 _M32 = 0xFFFFFFFF
 
@@ -104,8 +106,14 @@ def _stencil_tensor(nearby: int, device: torch.device) -> torch.Tensor:
 
 
 def point_to_voxel(points: torch.Tensor, resolution: float) -> torch.Tensor:
-    """World points (3, N) -> integer voxel coords (3, N) (floor, ivox Pos2Grid)."""
-    return torch.floor(points / resolution).to(torch.int32)
+    """World points (3, N) -> integer voxel coords (3, N) (floor, ivox Pos2Grid).
+
+    The coordinates multiply by the float32 reciprocal of the resolution on
+    every device: jitted XLA folds the JAX package's division by the
+    constant resolution into that product, and PyTorch's CUDA kernel does
+    the same to a division by a host scalar while the CPU divides. A point
+    on a voxel bound then lands in one voxel everywhere."""
+    return torch.floor(points * recip32(resolution)).to(torch.int32)
 
 
 def _u32(c: torch.Tensor) -> torch.Tensor:

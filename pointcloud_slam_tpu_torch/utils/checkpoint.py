@@ -1,13 +1,54 @@
-"""Trajectory, pose-graph and keyframe output (copies of
-`save_trajectory_tum`, `save_poses_kitti`, `save_pose_graph_g2o`,
-`load_pose_graph_g2o`, `save_scd`, `load_scd` and `save_keyframe_artifacts`
-from `pointcloud_slam_tpu/utils/checkpoint.py`; the g2o export takes the
-port's PoseGraph, the keyframe artifacts take tensors or arrays)."""
+"""Checkpoints of pipeline states, and trajectory, pose-graph and keyframe
+output (port of `pointcloud_slam_tpu/utils/checkpoint.py`; the g2o export
+takes the port's PoseGraph, the keyframe artifacts take tensors or arrays).
+
+`save_state` writes the JAX package's `.npz` layout: the state's leaves in
+field order (`leaf_i`, in the JAX package's dtypes, as `convert.to_numpy`
+gives them) and `n_leaves`. So `load_state` reads a file the JAX package's
+`save_state` wrote of the same state type, and the JAX package reads the
+port's.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def _leaves(tree) -> list:
+    """A state's leaves in field order (the order jax.tree.flatten gives a
+    NamedTuple of arrays)."""
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(like, it):
+    if isinstance(like, tuple):
+        return type(like)(*(_rebuild(v, it) for v in like))
+    a = next(it)
+    if torch.is_tensor(like):
+        return torch.from_numpy(np.asarray(a).astype(np.int64) if a.dtype == np.uint32 else np.array(a)).to(
+            device=like.device, dtype=like.dtype)
+    return type(like)(a.item()) if isinstance(like, (bool, int, float)) else a
+
+
+def save_state(path: str, state):
+    """Serialize a state (LIOState, SLAMState, PoseGraph, a map ...) to one .npz."""
+    from ..convert import to_numpy
+
+    leaves = _leaves(to_numpy(state))
+    np.savez_compressed(path, n_leaves=len(leaves), **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)})
+
+
+def load_state(path: str, like):
+    """Restore a state saved by either package's save_state, with `like` (a
+    state of the same type) giving the structure, dtypes and device."""
+    data = np.load(path)
+    n = int(data["n_leaves"])
+    n_like = len(_leaves(like))
+    assert n == n_like, f"checkpoint has {n} leaves, expected {n_like}"
+    return _rebuild(like, iter(data[f"leaf_{i}"] for i in range(n)))
 
 
 def save_trajectory_tum(path: str, times, positions, quats_xyzw):

@@ -30,20 +30,32 @@ import torch
 _FMT = "%(levelname).1s%(asctime)s.%(msecs)03d %(name)s] %(message)s"
 _DATEFMT = "%m%d %H:%M:%S"
 
-_configured = False
+class _StderrHandler(logging.StreamHandler):
+    """A handler that writes to the `sys.stderr` of the moment: one that kept
+    the stream it was made with writes into a closed one once the process
+    replaces stderr (as a test's output capture does)."""
+
+    @property
+    def stream(self):
+        return sys.stderr
+
+    @stream.setter
+    def stream(self, value):
+        pass
 
 
 def get_logger(name: str = "pcs", level: int = logging.INFO) -> logging.Logger:
-    """glog-look-alike logger: `I0816 12:34:56.789 pcs] message`."""
-    global _configured
-    if not _configured:
-        h = logging.StreamHandler(sys.stderr)
-        h.setFormatter(logging.Formatter(_FMT, datefmt=_DATEFMT))
-        root = logging.getLogger("pcs")
-        root.addHandler(h)
-        root.propagate = False
-        _configured = True
+    """glog-look-alike logger: `I0816 12:34:56.789 pcs] message`.
+
+    Each logger carries its own handler and does not propagate: the JAX
+    package configures the stdlib logger "pcs" of the same names, and in a
+    process that imports both, a message would otherwise reach both handlers."""
     lg = logging.getLogger(name if name.startswith("pcs") else f"pcs.{name}")
+    if not any(isinstance(h, _StderrHandler) for h in lg.handlers):
+        h = _StderrHandler()
+        h.setFormatter(logging.Formatter(_FMT, datefmt=_DATEFMT))
+        lg.addHandler(h)
+        lg.propagate = False
     lg.setLevel(level)
     return lg
 

@@ -49,6 +49,12 @@ def test_port_and_app_never_import_jax():
             "from pointcloud_slam_tpu_torch.models.lio import preprocess;"
             "import apps.run_localization_torch as loc_app; loc_app.build_config(loc_app.parse_args([]));"
             "sys.path.insert(0, 'tools'); import make_dataset_torch;"
+            "import soak_online_torch, soak_localization_torch; soak_online_torch.parse_args([]);"
+            "soak_localization_torch.parse_args([]); soak_online_torch.soak_config();"
+            "import apps.run_mapping_online_torch as online, apps.run_kitti_torch as kitti;"
+            "import apps.mapping_session_torch, apps.visualize_run_torch; online.parse_args([]);"
+            "from pointcloud_slam_tpu_torch.ops import phc; from pointcloud_slam_tpu_torch.models.lio import fusion;"
+            "from pointcloud_slam_tpu_torch.utils import checkpoint; checkpoint.save_state, checkpoint.load_state;"
             "app.build_config(app.parse_args(['--config_file', 'configs/lio/velodyne.yaml']));"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m);"
             "assert not any(m.startswith('pointcloud_slam_tpu.') or m == 'pointcloud_slam_tpu' for m in sys.modules);"
@@ -136,19 +142,66 @@ def test_constructors_default_to_the_gpu(name):
             make()
 
 
+def _load_entry(rel):
+    spec = importlib.util.spec_from_file_location(os.path.basename(rel)[:-3] + "_contract", os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize("app", ["run_mapping_offline_torch", "run_slam_offline_torch", "run_localization_torch"])
 def test_apps_default_to_the_gpu(app):
     """Each replay app runs on the card unless --device says otherwise, and
     without a GPU it refuses before it reads any input."""
-    path = os.path.join(ROOT, "apps", f"{app}.py")
-    spec = importlib.util.spec_from_file_location(f"{app}_contract", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _load_entry(f"apps/{app}.py")
     assert mod.parse_args([]).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             mod.main(["--synthetic", "1", "--out_dir" if app != "run_mapping_offline_torch" else "--traj_log_file",
                       os.devnull])
+
+
+# the deployed-mode entry points: (file, arguments of a run that must refuse without a GPU)
+DEPLOYED = {
+    "apps/run_mapping_online_torch.py": ["--frames", "1"],
+    "apps/run_kitti_torch.py": ["no_such_dir"],
+    "tools/soak_online_torch.py": ["--seconds", "0.1"],
+    "tools/soak_localization_torch.py": ["--seconds", "0.1"],
+}
+
+
+@pytest.mark.parametrize("rel", sorted(DEPLOYED))
+def test_deployed_entry_points_default_to_the_gpu(rel):
+    """The online mapper, the KITTI app and both soaks run on the card unless
+    --device says otherwise; without a GPU they refuse before any work. The
+    session CLI passes --device to the apps it launches and refuses to launch
+    them on a machine without a GPU."""
+    mod = _load_entry(rel)
+    args = DEPLOYED[rel]
+    assert mod.parse_args(args).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            mod.main(args)
+
+
+def test_session_defaults_to_the_gpu(tmp_path, capsys):
+    ms = _load_entry("apps/mapping_session_torch.py")
+    ms.main(["--root", str(tmp_path), "start", "--synthetic", "2"])
+    assert "run_mapping_offline_torch.py --synthetic 2 --device cuda" in capsys.readouterr().out
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            ms.main(["--root", str(tmp_path), "start", "--synthetic", "2", "--run"])
+
+
+@pytest.mark.parametrize("rel", ["apps/run_mapping_online_torch.py", "apps/run_kitti_torch.py",
+                                 "apps/mapping_session_torch.py", "apps/visualize_run_torch.py",
+                                 "tools/soak_online_torch.py", "tools/soak_localization_torch.py",
+                                 "tools/make_dataset_torch.py"])
+def test_entry_point_help(rel, capsys):
+    mod = _load_entry(rel)
+    with pytest.raises(SystemExit) as e:
+        (mod.parse_args if hasattr(mod, "parse_args") else mod.main)(["--help"])
+    assert e.value.code == 0 and "usage:" in capsys.readouterr().out
 
 
 def test_align_bench_app_runs_on_cpu():

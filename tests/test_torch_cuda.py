@@ -222,7 +222,9 @@ def _to(tree, dev):
 
 def test_ndt_align_on_card_matches_cpu(cuda):
     """NDT P2D and D2D on the same target (built on the CPU, copied): the card's
-    pose within 1e-4 m / 1e-4 of the CPU's, the same iterations."""
+    pose within 1e-5 m / 1e-5 of the CPU's (voxel keys by the same float32
+    reciprocal on both devices; 3.9e-7 m apart on an H100), the same
+    iterations."""
     from pointcloud_slam_tpu_torch import register
     from pointcloud_slam_tpu_torch.io import synthetic
 
@@ -235,8 +237,8 @@ def test_ndt_align_on_card_matches_cpu(cuda):
     for name, fn in (("p2d", lambda g_, d: register.ndt.align(gc, g_, src.to(d), cfg=cfg)),
                      ("d2d", lambda g_, d: register.ndt.align_d2d(gc, g_, sm.to(d), sc.to(d), sv.to(d), cfg=cfg))):
         rc, rg = fn(g, "cpu"), fn(_to(g, cuda), cuda)
-        np.testing.assert_allclose(rg.pose.t.cpu().numpy(), rc.pose.t.numpy(), atol=1e-4, err_msg=name)
-        np.testing.assert_allclose(rg.pose.R.cpu().numpy(), rc.pose.R.numpy(), atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(rg.pose.t.cpu().numpy(), rc.pose.t.numpy(), atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(rg.pose.R.cpu().numpy(), rc.pose.R.numpy(), atol=1e-5, err_msg=name)
         assert int(rg.iterations) == int(rc.iterations), name
         assert np.linalg.norm(rg.pose.t.cpu().numpy() - t) < 0.15
 
@@ -580,3 +582,99 @@ def test_voxel_downsample_on_card_matches_cpu(cuda, n):
     assert torch.equal(mg, mc) and int(mc.sum()) > 1000
     assert torch.equal(og[:, mg], oc[:, mc])
     assert syncs == 0, syncs
+
+
+def _bound_points(res, n_extra=0, seed=0):
+    """Points on voxel bounds k * res and one float32 ulp either side (the
+    neighbours of 0 at +-1e-6 m), the rows permuted; plus n_extra uniform ones."""
+    ks = np.arange(-60, 61)
+    b = (ks * np.float32(res)).astype(np.float32)
+    up, dn = np.nextafter(b, np.float32(np.inf)), np.nextafter(b, np.float32(-np.inf))
+    up[ks == 0], dn[ks == 0] = 1e-6, -1e-6
+    x = np.concatenate([b, up, dn]).astype(np.float32)
+    pts = np.stack([x, x[::-1], np.roll(x, 7)])
+    extra = np.random.default_rng(seed).uniform(-12, 12, (3, n_extra)).astype(np.float32)
+    return np.ascontiguousarray(np.concatenate([pts, extra], axis=1))
+
+
+@pytest.mark.parametrize("res", [0.2, 0.3, 0.4, 0.5, 1.0, 2.0])
+def test_voxel_keys_on_card_match_cpu(cuda, res):
+    """Voxel keys of bound points equal on the card and on the CPU: standalone,
+    the voxels `insert` files them under (one winner a slot can differ, the
+    set of voxels cannot), and the voxel `knn` looks each one up in (a
+    one-voxel stencil over a map of voxel centres, built on both devices)."""
+    from pointcloud_slam_tpu_torch import ops
+
+    pts = torch.from_numpy(_bound_points(res, 2000, seed=int(res * 10)))
+    n = pts.shape[1]
+    assert torch.equal(ops.point_to_voxel(pts.to(cuda), res).cpu(), ops.point_to_voxel(pts, res))
+    cfg = ops.GridConfig(capacity=1 << 14, pts_per_voxel=4, resolution=res, nearby=1, claim_rounds=4)
+    keys = {}
+    for dev in ("cpu", cuda):
+        g = ops.insert(cfg, ops.create(cfg, device=dev), pts.to(dev), torch.ones(n, dtype=torch.bool, device=dev))
+        keys[str(dev)] = {tuple(c) for c in g.keys[:, g.occupied].cpu().numpy().T}
+    assert keys["cpu"] == keys[str(cuda)]
+    cells = np.unique(np.floor(pts.numpy() * (np.float32(1) / np.float32(res))).astype(np.int64), axis=1)
+    centres = torch.from_numpy(((cells + 0.5) * res).astype(np.float32))
+    mcfg = ops.GridConfig(capacity=1 << 15, pts_per_voxel=2, resolution=res, nearby=1, claim_rounds=4)
+    found = {}
+    for dev in ("cpu", cuda):
+        m = ops.insert(mcfg, ops.create(mcfg, device=dev), centres.to(dev),
+                       torch.ones(centres.shape[1], dtype=torch.bool, device=dev))
+        nb, _, cnt, _ = ops.knn(mcfg, m, pts.to(dev), k=1, max_range=10.0 * res)
+        found[str(dev)] = (nb.cpu(), cnt.cpu())
+    assert bool((found["cpu"][1] == 1).all())
+    assert torch.equal(found["cpu"][0], found[str(cuda)][0]) and torch.equal(found["cpu"][1], found[str(cuda)][1])
+
+
+def test_gaussian_and_ndt_keys_on_card_match_cpu(cuda):
+    """The Gaussian voxel map of bound points (the NDT / VGICP target) and the
+    NDT source voxelization: the same voxels with the same point counts on
+    the card and on the CPU."""
+    from pointcloud_slam_tpu_torch import ops, register
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.ops import gaussian_grid as gg
+
+    pts = torch.from_numpy(_bound_points(0.3, 20000, seed=3))
+    # NDT's source voxels need >= 6 points: a 20,000-point room and bound points at 1 m
+    room = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [synthetic.make_room_cloud(20000, seed=0).T, _bound_points(1.0)], axis=1).astype(np.float32)))
+    # room for every voxel: a claim that finds no slot drops its points, and
+    # which of two racing voxels wins differs between the devices (ROADMAP §3)
+    cfg = ops.GridConfig(capacity=1 << 18, resolution=0.3, nearby=7)
+    by_voxel, ndt = {}, {}
+    for dev in ("cpu", cuda):
+        g = gg.accumulate(cfg, gg.create(cfg, device=dev), pts.to(dev),
+                          torch.ones(pts.shape[1], dtype=torch.bool, device=dev))
+        occ = g.occupied.cpu()
+        by_voxel[str(dev)] = dict(zip(map(tuple, g.keys[:, occ].cpu().numpy().T), g.count[occ].cpu().numpy()))
+        mean, _, valid, count = register.ndt.voxelize_source(register.NDTConfig(resolution=1.0), room.to(dev),
+                                                             capacity=1 << 18)
+        ndt[str(dev)] = (mean[:, valid].cpu().numpy().T, count[valid].cpu().numpy())
+    assert by_voxel["cpu"] == by_voxel[str(cuda)] and len(by_voxel["cpu"]) > 1000
+    (mc, cc), (mg, cg) = ndt["cpu"], ndt[str(cuda)]
+    assert len(mc) == len(mg) > 100
+    # pair each card voxel with the CPU voxel of the nearest mean: the same
+    # voxel (1e-5 m: the sums' order differs) with the same point count
+    d = np.linalg.norm(mg[:, None, :] - mc[None, :, :], axis=2)
+    near = np.argmin(d, axis=1)
+    assert d[np.arange(len(mg)), near].max() < 1e-5 and np.array_equal(cg, cc[near])
+    assert len(np.unique(near)) == len(mg)
+
+
+def test_phc_merge_on_card_matches_cpu(cuda):
+    """PHC keys, merge masks and centroids (both output modes) and the curve
+    sort: the card's equal to the CPU's bit for bit, bound points included."""
+    from pointcloud_slam_tpu_torch.ops import phc
+
+    pts = torch.from_numpy(_bound_points(0.4, 20000, seed=4))
+    mask = torch.from_numpy(np.random.default_rng(4).random(pts.shape[1]) < 0.9)
+    pg, mg = pts.to(cuda), mask.to(cuda)
+    for a, b in zip(phc._phc_key(pg, mg, 0.4, 2), phc._phc_key(pts, mask, 0.4, 2)):
+        assert torch.equal(a.cpu(), b)
+    for curve in (False, True):
+        (og, omg), (oc, omc) = phc.phc_merge(pg, mg, 0.4, 2, curve_output=curve), phc.phc_merge(pts, mask, 0.4, 2,
+                                                                                              curve_output=curve)
+        assert torch.equal(omg.cpu(), omc) and torch.equal(og.cpu()[:, omc], oc[:, omc]), curve
+    for a, b in zip(phc.phc_sort(pg, mg, 0.4, 2), phc.phc_sort(pts, mask, 0.4, 2)):
+        assert torch.equal(a.cpu(), b)

@@ -183,3 +183,29 @@ def test_registration_targets_round_trip():
         for x, y in zip(la, lb):
             assert x.dtype == y.dtype and x.shape == y.shape
             np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.heavy
+@pytest.mark.parametrize("k", [8, 20])
+def test_vgicp_exact_covariances_on_the_align_pair_match_jax(k):
+    """VGICP with exact k-NN covariances on apps/align_bench.py's 17,000-point
+    pair (:54-58), both packages on the CPU: the poses within 1e-4 m, so the
+    translation error against the known offset (0.0442 m at k = 8, 0.0587 m
+    at k = 20) is the workload's, not the port's. ~40 s."""
+    from pointcloud_slam_tpu.io import synthetic as jsyn
+
+    world = jsyn.make_room_cloud(40_000, seed=0)
+    R, t = jsyn.random_pose(seed=1, rot_scale=0.05, trans_scale=0.3)
+    rng = np.random.default_rng(0)
+    tgt = np.ascontiguousarray(world[rng.choice(len(world), 17_000, replace=False)].T.astype(np.float32))
+    src = np.ascontiguousarray(((world[rng.choice(len(world), 17_000, replace=False)] - t) @ R).T.astype(np.float32))
+    cj, ct = jreg.VGICPConfig(resolution=1.0), treg.VGICPConfig(resolution=1.0)
+    jg, jm = jreg.vgicp.build_target(cj, jnp.asarray(tgt), capacity=1 << 15, baked=True)
+    tg, tm = treg.vgicp.build_target(ct, torch.from_numpy(tgt), capacity=1 << 15, baked=True)
+    mj, mt = jnp.ones(src.shape[1], bool), torch.ones(src.shape[1], dtype=torch.bool)
+    pj = jreg.vgicp.align(jg, jm, jnp.asarray(src), jreg.source_covariances(jnp.asarray(src), mj, k=k, method="exact"),
+                          mj, cfg=cj).pose
+    pt = treg.vgicp.align(tg, tm, torch.from_numpy(src), treg.source_covariances(torch.from_numpy(src), mt, k=k,
+                                                                                 method="exact"), mt, cfg=ct).pose
+    assert np.abs(np.asarray(pj.t) - pt.t.numpy()).max() < 1e-4
+    print(f"k={k}: terr JAX {np.linalg.norm(np.asarray(pj.t) - t):.4f} m, port {np.linalg.norm(pt.t.numpy() - t):.4f} m")
