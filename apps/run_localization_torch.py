@@ -262,8 +262,10 @@ def main(argv=None):
         elif args.feature_map_dir:
             corner_map, surf_map = loader.maybe_update_features(x, y)
             cpts, cmask, spts, smask = features.front_end(pcfg, fcfg, pj, mj)
-            c, cm = features.fixed_size(cpts, cmask, args.n_corner)
-            s, sm = features.fixed_size(spts, smask, args.n_surf)
+            # spread over every ring, as the SLAM app selects (the first n in
+            # ring order would keep the lowest rings only)
+            c, cm = features.spread_size(cpts, cmask, args.n_corner)
+            s, sm = features.spread_size(spts, smask, args.n_surf)
             res = loc.localize_loam(cfg, None, corner_map, surf_map, c, cm, s, sm, pose)
         else:
             grid_cfg, point_map, _, _ = loader.maybe_update(x, y)

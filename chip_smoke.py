@@ -1163,7 +1163,7 @@ def run_recorded(dev, out_dir):
         "slam": [os.path.join(ROOT, "apps", "run_slam_offline_torch.py"), "--bag_file", bag, "--out_dir",
                  os.path.join(out_dir, "smoke_slam_bag")],
         "slam_ring": [os.path.join(ROOT, "apps", "run_slam_offline_torch.py"), "--bag_file", ring_bag, "--out_dir",
-                      os.path.join(out_dir, "smoke_slam_ring")]}, timeout=600)
+                      os.path.join(out_dir, "smoke_slam_ring"), "--save_artifacts"]}, timeout=600)
     # each replay is held to the ground truth, not to the others within 1e-3 m:
     # the three sources' point times differ by up to one float32 ulp, which
     # can make the update's convergence test (1e-3 a state dimension) stop an
@@ -1194,10 +1194,33 @@ def run_recorded(dev, out_dir):
           f"SLAM ring bag: {res['slam_ring_bag']}")
     res.update(replay_err_vs_gt_m=err, replay_traj_gap_m=gap,
                apps={name: so.strip().splitlines()[0] for name, (_, so, _) in apps.items()})
-    loc_app = run_apps({"localization": [os.path.join(ROOT, "apps", "run_localization_torch.py"), "--map_pcd",
-                                         map_file, "--data_dir", seq, "--out_dir",
-                                         os.path.join(out_dir, "smoke_loc_recorded")]}, timeout=600)
+    # feature-LOAM localization on the ring bag's sweeps against the tiles of
+    # the SLAM replay's keyframes, held to the same bound, none lost
+    from pointcloud_slam_tpu_torch.io import pcd
+
+    ring_tiles, ring_frames = os.path.join(out_dir, "smoke_ring_tiles"), os.path.join(out_dir, "smoke_ring_frames")
+    run_apps({"ring_tiles": [os.path.join(ROOT, "apps", "construct_full_map_torch.py"),
+                             os.path.join(out_dir, "smoke_slam_ring"), "--out",
+                             os.path.join(out_dir, "smoke_ring_full.pcd"), "--feature_maps", ring_tiles]}, timeout=600)
+    os.makedirs(ring_frames, exist_ok=True)
+    box = synthetic.make_box_world(0)
+    for k in range(RING_BAG_FRAMES):   # the bag's sweeps (write_ring_bag's seeds), sensor frame
+        sweep, _, _ = synthetic.spinning_scan(box, ring_R[k], ring_t[k], seed=k)
+        pcd.write_pcd(os.path.join(ring_frames, f"frame_{k:06d}.pcd"), sweep)
+    loc = os.path.join(ROOT, "apps", "run_localization_torch.py")
+    loc_app = run_apps({"localization": [loc, "--map_pcd", map_file, "--data_dir", seq, "--out_dir",
+                                         os.path.join(out_dir, "smoke_loc_recorded")],
+                        "loc_ring": [loc, "--feature_map_dir", ring_tiles, "--data_dir", ring_frames, "--n_points",
+                                     str(len(sweep)), "--out_dir", os.path.join(out_dir, "smoke_loc_ring")]},
+                       timeout=600)
     res["apps"]["localization"] = loc_app["localization"][1].strip().splitlines()[0]
+    loc_est = np.loadtxt(os.path.join(out_dir, "smoke_loc_ring", "traj_tum.txt"))[:, 1:4]
+    check(loc_est.shape == ring_gt.shape, f"localization ring bag: trajectory {loc_est.shape}")
+    res["loc_ring_bag"] = dict(frames=len(loc_est), max_err_m=float(np.linalg.norm(loc_est - ring_gt, axis=1).max()),
+                               lost=lost_count(loc_app["loc_ring"][1]), gate_m=RING_BAG_MAX_ERR_M,
+                               app=next(ln for ln in loc_app["loc_ring"][1].splitlines() if "lost:" in ln))
+    check(res["loc_ring_bag"]["max_err_m"] < RING_BAG_MAX_ERR_M and res["loc_ring_bag"]["lost"] == 0,
+          f"feature-LOAM localization on the ring bag: {res['loc_ring_bag']}")
     res["plane_fit_vs_oracle"] = oracle_plane_fit(dev)
     return res
 
@@ -1644,6 +1667,258 @@ def mapping_session(dev, out_dir):
                 stop=stop.strip().splitlines()[-1], app=log.strip().splitlines()[0] if log.strip() else "")
 
 
+PAR_WORLD = 4              # phase 14: ranks sharing the card over gloo, mesh (2, 2) ...
+PAR_KF, PAR_LOOPS, PAR_NL = 4096, 64, 24   # ... the backend's keyframes, loop slots and loops
+# the backend's loop layouts (stride, span): the dry run's as written (they tie
+# only the first 2,352 of 4,096 nodes) and scaled with the node count (every
+# node tied to the opposite one)
+PAR_LAYOUTS = dict(backend=(80, 512), backend_scaled=(80 * PAR_KF // 1024, PAR_KF // 2))
+PAR_REPS = 3               # timed calls of each sharded function after a warm-up call
+# (label, ranks, backend, mesh): the ranks share the card over gloo; one rank has it alone over NCCL
+PAR_RUNS = (("gloo", PAR_WORLD, "gloo", (2, 2)), ("nccl", 1, "nccl", (1, 1)))
+
+
+def device_sync(dev):
+    import torch
+
+    return torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+
+def peak_gib(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
+
+
+def parallel_inputs(dev, lio_cfg, state, frame):
+    """Phase 14's inputs at the product shapes, built once in this process:
+    ICP at bench.py config 1 (as phase 6), the tuned LIO update on one
+    20,000-point frame's downsampled points against the map phase 3 built
+    (from its final state), config 8's scan-to-map from the previous pose
+    on the circle, and config 6's backend at 4,096 keyframes with 64 loop
+    slots on the dry run's drifting circle (__graft_entry__.py:116-133)
+    with 24 loops in each of PAR_LAYOUTS. Returns (configs and host
+    tensors, true ICP t, true graph t, noisy graph t)."""
+    import torch
+
+    from pointcloud_slam_tpu_torch import ops, register
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.models.liosam import backend as bk
+
+    host = lambda tree: tuple(host(t) for t in tree) if isinstance(tree, tuple) else tree.cpu()
+    world = synthetic.make_room_cloud(60_000, seed=0)
+    srcs, icp_gt = icp_frames(world, 24, N_POINTS)
+    icp_grid_cfg = ops.GridConfig(capacity=1 << 17, pts_per_voxel=10, resolution=0.3, probe=4, nearby=7, baked=True)
+    icp_cfg = register.ICPConfig(search_every=10, warmup_searches=0, solver=register.SolverConfig(
+        max_iterations=30, rotation_epsilon=0.0, translation_epsilon=0.0))
+    _, icp_grid = register.build_target_map(torch.from_numpy(np.ascontiguousarray(world.T)).to(dev),
+                                            grid_cfg=icp_grid_cfg)
+    pts_d, mask_d = ops.voxel_downsample_compact(frame.pts, frame.pt_mask, lio_cfg.scan_leaf, lio_cfg.scan_budget)
+
+    s2cfg = loc_config().scan2map
+    corners_w, surfs_w = synthetic.make_feature_world(seed=3)
+    fmaps = []
+    for cloud, g in ((corners_w, s2cfg.corner_grid), (surfs_w, s2cfg.surf_grid)):
+        pts = torch.from_numpy(np.ascontiguousarray(cloud.T.astype(np.float32))).to(dev)
+        fmaps.append(ops.insert(g, ops.create(g, device=dev), pts, torch.ones(pts.shape[1], dtype=torch.bool,
+                                                                                   device=dev)))
+    circle = lambda k: np.array([3.0 * np.sin(2 * np.pi * k / LOC_FRAMES), 3.0 * (1 - np.cos(2 * np.pi * k / LOC_FRAMES)),
+                                 1.0], np.float32)
+    eye = np.eye(3, dtype=np.float32)
+    c, cm = synthetic.take_scan(corners_w, eye, circle(8), 512, seed=8)
+    s, sm = synthetic.take_scan(surfs_w, eye, circle(8), 2048, seed=108)
+
+    bcfg = bk.BackendConfig(max_keyframes=PAR_KF, max_loops=PAR_LOOPS, keyframe_dist_thresh=0.3, gn_iterations=3,
+                            pcg_iterations=24)
+    graphs = {name: synthetic.drifting_circle_graph(bcfg, PAR_NL, stride, span, device="cpu")
+              for name, (stride, span) in PAR_LAYOUTS.items()}
+    inp = dict(icp=(icp_grid_cfg, icp_cfg, host(icp_grid), torch.from_numpy(srcs)),
+               lio=(lio_cfg, host(state.grid), host(tuple(state.x)), state.P.cpu(), pts_d.cpu(), mask_d.cpu()),
+               s2m=(s2cfg, host(fmaps[0]), host(fmaps[1]),
+                    *(torch.from_numpy(np.ascontiguousarray(a.T) if a.ndim == 2 else a) for a in (c, cm, s, sm)),
+                    torch.from_numpy(circle(7))),
+               **{name: (bcfg, g) for name, (g, _, _) in graphs.items()})
+    _, t_true, t_noisy = graphs["backend"]
+    return inp, icp_gt, t_true, t_noisy
+
+
+def parallel_calls(inp, dev, mesh=None):
+    """{name: fn()} for the four functions on `inp` moved to `dev`: sharded
+    over `mesh`, or the single-device functions without one. With a mesh,
+    every replicated input is broadcast from rank 0 first."""
+    import torch
+
+    from pointcloud_slam_tpu_torch import ops, parallel, register
+    from pointcloud_slam_tpu_torch.geom import se3
+    from pointcloud_slam_tpu_torch.models.lio import eskf, state as lst
+    from pointcloud_slam_tpu_torch.models.lio import pipeline as lp
+    from pointcloud_slam_tpu_torch.models.liosam import backend as bk
+    from pointcloud_slam_tpu_torch.models.liosam import scan2map as s2m
+    from pointcloud_slam_tpu_torch.parallel import mesh as pmesh
+
+    def card(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(dev)
+        return type(tree)(*map(card, tree)) if hasattr(tree, "_fields") else type(tree)(map(card, tree))
+
+    rep = (lambda tree: pmesh.replicate(tree)) if mesh is not None else (lambda tree: tree)
+    icp_grid_cfg, icp_cfg, icp_grid, srcs = inp["icp"]
+    icp_grid, srcs = rep(card(ops.VoxelHashMap(*icp_grid))), rep(card(srcs))
+    B = srcs.shape[0]
+    icp_mask = torch.ones((B, srcs.shape[2]), dtype=torch.bool, device=dev)
+    lio_cfg, lio_grid, x0, P0, pts_d, mask_d = inp["lio"]
+    lio_grid, x0, P0 = rep(card(ops.VoxelHashMap(*lio_grid))), rep(card(lst.NavState(*x0))), rep(card(P0))
+    pts_d, mask_d = rep(card(pts_d)), rep(card(mask_d))
+    s2cfg, cmap, smap, c, cm, s, sm, t_prev = inp["s2m"]
+    cmap, smap = rep(card(ops.VoxelHashMap(*cmap))), rep(card(ops.VoxelHashMap(*smap)))
+    c, cm, s, sm, t_prev = (rep(card(a)) for a in (c, cm, s, sm, t_prev))
+    graphs = {name: (inp[name][0], rep(card(inp[name][1]))) for name in PAR_LAYOUTS}
+    init = se3.Pose(torch.eye(3, device=dev), t_prev)
+    if mesh is None:
+        def lio_single():
+            body_norm = torch.sqrt(torch.sum(pts_d * pts_d, dim=0))
+            u = eskf.update_iterated(x0, P0, lp._obs_model(lio_cfg, lio_grid, pts_d, body_norm, mask_d),
+                                     lio_cfg.laser_point_cov, lio_cfg.max_iterations, lio_cfg.epsi)
+            return u.x, u.P, u.iterations, u.converged
+        calls = dict(
+            icp=lambda: register.batched_point_to_plane_icp(icp_grid_cfg, icp_grid, srcs, icp_mask, cfg=icp_cfg),
+            lio=lio_single,
+            s2m=lambda: s2m.scan_to_map(s2cfg, cmap, smap, c, cm, s, sm, init),
+            **{name: (lambda g=g: bk.optimize(*g)) for name, g in graphs.items()})
+    else:
+        calls = dict(
+            icp=lambda: parallel.sharded_point_to_plane_icp(
+                mesh, icp_grid_cfg, icp_grid, srcs, icp_mask, se3.identity(batch=(B,), device=dev), cfg=icp_cfg),
+            lio=lambda: parallel.sharded_lio_update(mesh, lio_cfg, lio_grid, x0, P0, pts_d, mask_d),
+            s2m=lambda: parallel.sharded_scan_to_map(mesh, s2cfg, cmap, smap, c, cm, s, sm, init),
+            **{name: (lambda g=g: parallel.sharded_optimize(mesh, *g)) for name, g in graphs.items()})
+    return calls
+
+
+def parallel_outputs(name, out):
+    """The compared outputs of each function, as host tensors."""
+    if name == "icp":
+        return (out[0].R, out[0].t, out[1], out[2])
+    if name == "lio":
+        return (out[0].pos, out[0].rot, out[1], out[2], out[3])
+    if name == "s2m":
+        return (out.pose.R, out.pose.t, out.num_corner, out.num_surf, out.degenerate)
+    return (out.R, out.t)
+
+
+def time_calls(calls, reps, sync):
+    """Each call once to warm up, then `reps` times: {name: (host outputs,
+    median wall ms, all-reduce calls and bytes a call)}."""
+    from pointcloud_slam_tpu_torch.parallel import mesh as pmesh
+
+    res = {}
+    for name, fn in calls.items():
+        fn()
+        sync()
+        times = []
+        for _ in range(reps):
+            c0, b0 = pmesh.all_reduce_sum.calls, pmesh.all_reduce_sum.bytes
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            calls_1, bytes_1 = pmesh.all_reduce_sum.calls - c0, pmesh.all_reduce_sum.bytes - b0
+        res[name] = (tuple(t.cpu() for t in parallel_outputs(name, out)), statistics.median(times), calls_1, bytes_1)
+    return res
+
+
+def parallel_rank(inp, reps, device):
+    """One rank of phase 14: the four sharded functions on rank 0's
+    broadcast inputs. Returns outputs, wall ms, all-reduces a call, peak
+    memory, K1 / K2 launches, the mesh and the backend."""
+    import torch
+    import torch.distributed as dist
+
+    from pointcloud_slam_tpu_torch import parallel
+    from pointcloud_slam_tpu_torch.ops import bf_knn
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    mesh = parallel.make_mesh(device_type=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    bf_knn.knn.launches = bf_knn.nearest_neighbor.launches = 0
+    res = time_calls(parallel_calls(inp, dev, mesh), reps, device_sync(dev))
+    return dict(res=res, peak_gib=peak_gib(dev), mesh=tuple(mesh.shape), backend=dist.get_backend(),
+                k1_k2=[bf_knn.knn.launches, bf_knn.nearest_neighbor.launches])
+
+
+def run_parallel(dev, lio_cfg, state, frame):
+    """Phase 14: the sharded ICP, LIO update, scan-to-map and backend at the
+    product shapes on PAR_WORLD ranks sharing the card over gloo (mesh
+    (2, 2)) and on one rank over NCCL (mesh (1, 1)), each held against the
+    single-device function on the same inputs in this process at
+    tests/test_parallel.py's tolerances (the backend on its written loop
+    layout only reported: see below); ranks bit for bit equal; the
+    backend's error must fall on every run; K1 / K2 at 0 launches."""
+    import torch
+
+    from pointcloud_slam_tpu_torch import parallel
+    from pointcloud_slam_tpu_torch.ops import bf_knn
+
+    inp, icp_gt, t_true, t_noisy = parallel_inputs(dev, lio_cfg, state, frame)
+    bf_knn.knn.launches = bf_knn.nearest_neighbor.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    single = time_calls(parallel_calls(inp, dev), PAR_REPS, device_sync(dev))
+    k1_k2 = [bf_knn.knn.launches, bf_knn.nearest_neighbor.launches]
+    err0 = float(np.linalg.norm(t_noisy - t_true, axis=1).max())
+    single_err = {name: float(np.linalg.norm(single[name][0][1].numpy() - t_true, axis=1).max())
+                  for name in PAR_LAYOUTS}
+    check(all(e < err0 for e in single_err.values()), f"single device: backend error {err0} -> {single_err} m")
+    tol = dict(icp=1e-2, lio=1e-5, s2m=1e-4, backend_scaled=5e-4)   # tests/test_parallel.py
+    fields = dict(single=dict(wall_ms={k: v[1] for k, v in single.items()}, peak_gib=peak_gib(dev), k1_k2=k1_k2,
+                              backend_err_m=dict(noisy=err0, **single_err)))
+    for label, world, backend, shape in PAR_RUNS:
+        t0 = time.perf_counter()
+        ranks = parallel.launch(parallel_rank, world, device=dev.type, backend=backend,
+                                args=(inp, PAR_REPS, dev.type), timeout=600)
+        launch_s = time.perf_counter() - t0
+        check(all(r["mesh"] == shape and r["backend"] == backend for r in ranks),
+              f"{label}: meshes {[r['mesh'] for r in ranks]}, backends {[r['backend'] for r in ranks]}")
+        for r in ranks[1:]:
+            for name in single:
+                check(all(torch.equal(a, b) for a, b in zip(ranks[0]["res"][name][0], r["res"][name][0])),
+                      f"{label}: {name} differs between ranks")
+        err = {}
+        for name, (ref, _, _, _) in single.items():
+            got = ranks[0]["res"][name][0]
+            floats = [(a, b) for a, b in zip(got, ref) if a.is_floating_point()]
+            err[name] = max(float((a.double() - b.double()).abs().max()) for a, b in floats)
+            # the written layout's 3 GN x 24 PCG result moves by centimetres with the order of
+            # its float32 sums (the single device's atomics change it from run to run, ROADMAP
+            # §3): its gap is reported; it is held to finite values, equal ranks and a falling error
+            check(name not in tol or err[name] <= tol[name],
+                  f"{label}: {name} off the single-device result by {err[name]} (tolerance {tol.get(name)})")
+            check(all(torch.equal(a, b) for a, b in zip(got, ref) if not a.is_floating_point()),
+                  f"{label}: {name}'s iterations, counts or flags differ from the single-device result")
+        fields[label] = dict(
+            ranks=len(ranks), launch_s=launch_s, max_abs_err_vs_single=err,
+            wall_ms={name: [r["res"][name][1] for r in ranks] for name in single},
+            all_reduce_calls={name: ranks[0]["res"][name][2] for name in single},
+            all_reduce_bytes={name: ranks[0]["res"][name][3] for name in single},
+            peak_gib=[r["peak_gib"] for r in ranks], k1_k2=[r["k1_k2"] for r in ranks])
+        check(all(r["k1_k2"] == [0, 0] for r in ranks), f"{label}: the sharded paths launched K1/K2")
+        icp_err = float(np.linalg.norm(ranks[0]["res"]["icp"][0][1].numpy() - icp_gt, axis=1).max())
+        err1 = {name: float(np.linalg.norm(ranks[0]["res"][name][0][1].numpy() - t_true, axis=1).max())
+                for name in PAR_LAYOUTS}
+        fields[label].update(icp_trans_err_max_m=icp_err, backend_err_m=dict(noisy=err0, **err1))
+        check(icp_err < 0.05 and all(e < err0 for e in err1.values()),
+              f"{label}: ICP error {icp_err} m, backend error {err0} -> {err1} m")
+    check(k1_k2 == [0, 0], f"the single-device references launched K1/K2 {k1_k2} times")
+    t0 = time.perf_counter()
+    dry = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "dryrun_multichip_torch.py"), "--world_size",
+                          str(PAR_WORLD), "--device", dev.type], capture_output=True, text=True, timeout=600, cwd=ROOT)
+    check(dry.returncode == 0 and "dryrun_multichip ok" in dry.stdout,
+          f"dry run failed ({dry.returncode}):\n{dry.stdout}\n{dry.stderr[-3000:]}")
+    fields["dryrun"] = dict(s=time.perf_counter() - t0, out=dry.stdout.strip().splitlines()[-1])
+    return fields
+
+
 def main():
     import torch
 
@@ -1843,9 +2118,13 @@ def main():
     phase(13, "mapping session (start --mode fast --run --synthetic 20, save-map, pub-occ-map, stop)",
           k1_k2_launches=k1_k2, **session)
     check(k1_k2 == [0, 0], f"the deployed modes launched K1/K2 {k1_k2} times")
+
+    # ---- 14. multi-device parallelism: ranks sharing the card over gloo, one rank over NCCL ----
+    phase(14, f"parallel ({PAR_WORLD} ranks sharing the card over gloo, mesh (2, 2); 1 rank over NCCL)",
+          nvidia_smi=smi, **run_parallel(dev, cfg, state, frames[-1]))
     check("jax" not in sys.modules and not any(m.split(".")[0] == "pointcloud_slam_tpu" for m in sys.modules),
           "the port imported jax or the JAX package")
-    phase(14, "done", wall_s=time.perf_counter() - t_script)
+    phase(15, "done", wall_s=time.perf_counter() - t_script)
 
     k1_bound, k1_bound_by = knn_bound_ms(pts.shape[1], pts.shape[1], 20)
     print(json.dumps({"kernels": [

@@ -453,3 +453,35 @@ def write_ring_bag(path, n_frames=30, seed=0):
                 "x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2],
                 "intensity": np.full(len(pts), 100.0, np.float32), "ring": ring, "time": t_off})
     return stamps, Rs, ts
+
+
+def drifting_circle_graph(cfg, n_loops, stride, span, radius=20.0, climb=0.05, rng=0, device="cuda"):
+    """`__graft_entry__.dryrun_multichip`'s pose graph for a
+    `models.liosam.backend.BackendConfig`: `cfg.max_keyframes` nodes on a
+    helix (`radius` m, rising `climb` m a radian) with 1 cm of drift a node
+    (cumulative noise from `rng`, a seed or a numpy Generator), exact
+    odometry of information 1e4 and `n_loops` loops (i, i + span) of
+    information 1e3, i = k * stride mod (KF - span), in `cfg.max_loops`
+    slots. Returns (graph, true t (KF, 3), noisy t (KF, 3))."""
+    import torch
+
+    from ..models.liosam import backend as bk
+
+    KF, L = cfg.max_keyframes, cfg.max_loops
+    rng = np.random.default_rng(rng)
+    ang = np.linspace(0, 2 * np.pi, KF)
+    t_true = np.stack([radius * np.cos(ang), radius * np.sin(ang), climb * ang], 1).astype(np.float32)
+    t_noisy = t_true + np.cumsum(rng.normal(0, 0.01, (KF, 3)), 0).astype(np.float32)
+    odom_t = np.zeros((KF, 3), np.float32)
+    odom_t[1:] = t_true[1:] - t_true[:-1]
+    live = np.arange(L) < n_loops
+    li = np.where(live, (np.arange(L) * stride) % (KF - span), 0)
+    lj = np.where(live, li + span, 0)
+    loop_t = np.where(live[:, None], t_true[lj] - t_true[li], 0).astype(np.float32)
+    loop_info = np.where(live[:, None], np.float32(1e3), np.float32(0)) * np.ones((L, 6), np.float32)
+    f = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    g = bk.create(cfg, device=device)._replace(
+        t=f(t_noisy), n=f(KF, torch.int32), odom_t=f(odom_t), odom_info=torch.full((KF, 6), 1e4, device=device),
+        loop_i=f(li, torch.int32), loop_j=f(lj, torch.int32), loop_t=f(loop_t), loop_info=f(loop_info),
+        n_loops=f(n_loops, torch.int32))
+    return g, t_true, t_noisy

@@ -19,7 +19,7 @@ and in float32 one frame could wreck the bias estimate and grow P.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -128,6 +128,7 @@ def update_iterated(
     max_iter: int = 4,
     epsi: float = 0.001,
     research: bool = True,
+    reduce: Optional[Callable] = None,
 ) -> UpdateResult:
     """Iterated measurement update, small-state path (n <= measurements).
 
@@ -135,6 +136,11 @@ def update_iterated(
     the point-to-plane observation model; `do_search` mirrors the reference's
     `ekfom_data.converge` flag gating the NN re-search (laser_mapping.cc:618).
     The first iteration always searches (cache is None there).
+
+    `reduce` is applied to the (HTH, HTh) pair right after the local point
+    reductions, before the float64 algebra: the point-axis sharding hook
+    (`parallel.sharded_lio_update` passes a sum over the ranks of a mesh
+    axis, so each rank linearizes only its point shard).
     """
     dev, dtype, f64 = P0.device, P0.dtype, torch.float64
     P0d = P0.to(f64)
@@ -165,8 +171,11 @@ def update_iterated(
         dx_new = T @ dx.to(f64)
         P = T @ P0d @ T.T
 
-        HTH = (h_x.T @ h_x).to(f64)  # (12, 12) reduction over points
-        HTh = (h_x.T @ h).to(f64)
+        HTH = h_x.T @ h_x  # (12, 12) reduction over points
+        HTh = h_x.T @ h
+        if reduce is not None:
+            HTH, HTh = reduce((HTH, HTh))
+        HTH, HTh = HTH.to(f64), HTh.to(f64)
         P_temp = _inv(P / R)
         P_temp[:_H_COLS, :_H_COLS] += HTH
         P_inv = _inv(P_temp)

@@ -9,8 +9,9 @@ factors (`addOdomFactor` :1658), GPS position priors (`addGPSFactor`
 `imuPreintegration.cpp` (:243-438) — the IMU factor graph over (pose,
 velocity, bias) nodes. iSAM2 becomes batched Gauss-Newton with a
 chain-preconditioned conjugate-gradient solve, matrix-free: H v is
-accumulated factor by factor with gathers and `index_add_` (atomics on a
-GPU, so sums are not bit-stable from run to run).
+accumulated factor by factor with gathers and scatter-adds (`_scatter_add`:
+`index_add_`, atomics on a GPU, so single-device sums are not bit-stable
+from run to run; a sharded solve's partial sums are added in order).
 
 Node tangent layout (15 dims): [rot 0:3, trans 3:6, vel 6:9, bg 9:12,
 ba 12:15], right perturbations R' = R Exp(dr), t' = t + R dt. The IMU
@@ -24,9 +25,13 @@ levels) and no function here reads a device value on the host, except
 a store is full (`mode="drop"`) land in one extra sink row that is cut off.
 The block inverse of the chain preconditioner is a Cholesky inverse after
 the same Jacobi scaling (the JAX package uses Newton-Schulz, a TPU choice);
-the dense tail is `cholesky_ex` + `cholesky_solve`. The slot-subset
-arguments of `_graph_terms` (for the factor-sharded backend) are not
-ported.
+the dense tail is `cholesky_ex` and two triangular solves. The chain
+preconditioner is factored and applied in float64 (the JAX package: f32):
+on a long chain that loops tie only in part, the f32 Schur complements of
+the reduction lose the tail's smallest eigenvalues, and the f32 tail
+factor of a 4,096-keyframe circle was NaN on the GPU. The slot-subset
+arguments of `_graph_terms` serve the factor-sharded backend
+(`parallel.sharded_optimize`).
 """
 
 from __future__ import annotations
@@ -352,51 +357,77 @@ def _bias_jacobians(F, dtype, device):
     return Ji, Jj
 
 
-def _loop_terms(cfg: BackendConfig, Ri, ti, Rj, tj, g: PoseGraph, act):
-    """Loop between factors with the Cauchy IRLS weight: Ji, Jj, e, info."""
+def _loop_terms(cfg: BackendConfig, Ri, ti, Rj, tj, g: PoseGraph, act, lidx=None):
+    """Loop between factors with the Cauchy IRLS weight: Ji, Jj, e, info.
+    `lidx` picks loop slots (all of them when None)."""
     L = Ri.shape[0]
-    e6 = _between_residual(Ri, ti, Rj, tj, g.loop_R, g.loop_t)
-    chi2 = torch.sum(e6 * e6 * g.loop_info, dim=-1)
+    loop_R, loop_t, loop_info, loop_robust = (
+        (g.loop_R, g.loop_t, g.loop_info, g.loop_robust) if lidx is None
+        else (g.loop_R[lidx], g.loop_t[lidx], g.loop_info[lidx], g.loop_robust[lidx]))
+    e6 = _between_residual(Ri, ti, Rj, tj, loop_R, loop_t)
+    chi2 = torch.sum(e6 * e6 * loop_info, dim=-1)
     c2 = cfg.loop_cauchy_c ** 2
-    w_rob = torch.where(g.loop_robust, c2 / (c2 + chi2), 1.0)
+    w_rob = torch.where(loop_robust, c2 / (c2 + chi2), 1.0)
     Ji, Jj = _pad_between(_between_jacobians(Ri, ti, Rj, tj), L, Ri.dtype)
-    return Ji, Jj, _rows6(e6, L, Ri.dtype), _rows6(g.loop_info * (act * w_rob)[:, None], L, Ri.dtype)
+    return Ji, Jj, _rows6(e6, L, Ri.dtype), _rows6(loop_info * (act * w_rob)[:, None], L, Ri.dtype)
 
 
-def _graph_terms(cfg: BackendConfig, g: PoseGraph):
+def _graph_terms(cfg: BackendConfig, g: PoseGraph, kf_slots=None, loop_slots=None):
     """Assemble the padded per-factor arrays over ALL factor families.
 
     Returns (fi, fj, Ji (F, RMAX, D), Jj, e (F, RMAX), info (F, RMAX), B):
     odometry, loop, IMU and bias factors in that order; inactive rows carry
     zero information. B (KF, D, D) holds the sub-diagonal blocks of the
-    sequential families for the chain preconditioner."""
+    sequential families for the chain preconditioner.
+
+    `kf_slots` / `loop_slots` (int tensors) restrict the linearization to
+    those keyframe slots (odometry, IMU and bias factors share slot k
+    between nodes k-1 and k) and loop slots: the factor-sharded backend
+    gives each rank its own range. Slots at or beyond their table are
+    inert: zero information, their gathers clamped into the table, so their
+    scatters add exact zeros. B then holds only the slots' sub-diagonal
+    terms, and the shards must be summed before `chain_factor`."""
     KF = cfg.max_keyframes
     dtype, dev = g.t.dtype, g.t.device
-    idx = torch.arange(KF, device=dev)
+    L = g.loop_i.shape[0]
+    if kf_slots is None:
+        idx = torch.arange(KF, device=dev)
+        oj, take = idx, (lambda a: a)
+    else:
+        idx = kf_slots.to(torch.int64)
+        oj = torch.clamp(idx, max=KF - 1)
+        take = (lambda a: a[oj])
 
     # ---- odometry between factors (slots 1..n-1; i = k-1, j = k) ----
     o_act = (idx >= 1) & (idx < g.n)
-    oi, oj = torch.clamp(idx - 1, min=0), idx
-    Ri, ti, Rj, tj = g.R[oi], g.t[oi], g.R, g.t
-    Ji_o, Jj_o = _pad_between(_between_jacobians(Ri, ti, Rj, tj), KF, dtype)
-    e_o = _rows6(_between_residual(Ri, ti, Rj, tj, g.odom_R, g.odom_t), KF, dtype)
-    info_o = _rows6(g.odom_info * o_act[:, None], KF, dtype)
+    oi = torch.clamp(oj - 1, min=0)
+    nk = idx.shape[0]
+    Ri, ti, Rj, tj = g.R[oi], g.t[oi], take(g.R), take(g.t)
+    Ji_o, Jj_o = _pad_between(_between_jacobians(Ri, ti, Rj, tj), nk, dtype)
+    e_o = _rows6(_between_residual(Ri, ti, Rj, tj, take(g.odom_R), take(g.odom_t)), nk, dtype)
+    info_o = _rows6(take(g.odom_info) * o_act[:, None], nk, dtype)
 
     # ---- loop between factors, Cauchy-robust IRLS weight ----
-    L = g.loop_i.shape[0]
-    li, lj = g.loop_i.to(torch.int64), g.loop_j.to(torch.int64)
-    l_act = torch.arange(L, device=dev) < g.n_loops
-    Ji_l, Jj_l, e_l, info_l = _loop_terms(cfg, g.R[li], g.t[li], g.R[lj], g.t[lj], g, l_act)
+    if loop_slots is None:
+        lidx, lsel = torch.arange(L, device=dev), None
+    else:
+        lidx = loop_slots.to(torch.int64)
+        lsel = torch.clamp(lidx, max=L - 1)
+    li = (g.loop_i if lsel is None else g.loop_i[lsel]).to(torch.int64)
+    lj = (g.loop_j if lsel is None else g.loop_j[lsel]).to(torch.int64)
+    l_act = lidx < g.n_loops
+    Ji_l, Jj_l, e_l, info_l = _loop_terms(cfg, g.R[li], g.t[li], g.R[lj], g.t[lj], g, l_act, lsel)
 
     # ---- IMU preintegration factors (slot k between k-1, k) ----
-    i_act = o_act & g.imu_mask
-    Ji_i9, Jj_i9, e9_i = _imu_terms(Ri, ti, g.vel[oi], g.bg[oi], g.ba[oi], Rj, tj, g.vel, g.imu_pim, g.grav)
-    info_i = g.imu_info * i_act[:, None]
+    i_act = o_act & take(g.imu_mask)
+    pim = g.imu_pim if kf_slots is None else pre.PreintegratedImu(*(a[oj] for a in g.imu_pim))
+    Ji_i9, Jj_i9, e9_i = _imu_terms(Ri, ti, g.vel[oi], g.bg[oi], g.ba[oi], Rj, tj, take(g.vel), pim, g.grav)
+    info_i = take(g.imu_info) * i_act[:, None]
 
     # ---- bias random-walk between factors ----
-    Ji_b, Jj_b = _bias_jacobians(KF, dtype, dev)
-    e_b = _rows6(torch.cat([g.bg - g.bg[oi], g.ba - g.ba[oi]], dim=-1), KF, dtype)
-    info_b = _rows6(g.bias_info * i_act[:, None], KF, dtype)
+    Ji_b, Jj_b = _bias_jacobians(nk, dtype, dev)
+    e_b = _rows6(torch.cat([take(g.bg) - g.bg[oi], take(g.ba) - g.ba[oi]], dim=-1), nk, dtype)
+    info_b = _rows6(take(g.bias_info) * i_act[:, None], nk, dtype)
 
     fi = torch.cat([oi, li, oi, oi])
     fj = torch.cat([oj, lj, oj, oj])
@@ -405,26 +436,44 @@ def _graph_terms(cfg: BackendConfig, g: PoseGraph):
     e = torch.cat([e_o, e_l, e9_i, e_b])
     info = torch.cat([info_o, info_l, info_i, info_b])
     # loops stay out of the chain preconditioner (the low-rank PCG part)
-    B = _offdiag_blocks(KF, dtype, idx, (Ji_o, Ji_i9, Ji_b), (Jj_o, Jj_i9, Jj_b), (info_o, info_i, info_b))
+    B = _offdiag_blocks(KF, dtype, oj, (Ji_o, Ji_i9, Ji_b), (Jj_o, Jj_i9, Jj_b), (info_o, info_i, info_b))
     return fi, fj, Ji, Jj, e, info, B
 
 
-def _hv(fi, fj, Ji, Jj, info, prior_diag, v):
-    """Matrix-free H @ v over all factors. v (KF, D) -> (KF, D)."""
+def _scatter_add(out, idx, rows, sharded):
+    """out[idx[f]] += rows[f] for every factor f. On the GPU `index_add_`'s
+    atomics add in any order, so its sums move by ulps from run to run. The
+    partial sums of a sharded solve (`sharded`) must be equal on every
+    replica of a shard (the dp groups of a mesh), so there the GPU adds in
+    the factors' order: `index_put_(accumulate=True)` sorts the indices
+    stably (~1,000 more launches a 3 GN x 24 PCG solve). On the CPU
+    `index_add_` adds in the factors' order already."""
+    if sharded and out.is_cuda:
+        return out.index_put_((idx,), rows, accumulate=True)
+    return out.index_add_(0, idx, rows)
+
+
+def _hv(fi, fj, Ji, Jj, info, prior_diag, v, reduce=None):
+    """Matrix-free H @ v over all factors. v (KF, D) -> (KF, D). `reduce`
+    sums the factor part across factor shards before the prior is added."""
     fv = torch.einsum("fab,fb->fa", Ji, v[fi]) + torch.einsum("fab,fb->fa", Jj, v[fj])
     w = info * fv
     out = torch.zeros_like(v)
-    out.index_add_(0, fi, torch.einsum("fba,fb->fa", Ji, w))
-    out.index_add_(0, fj, torch.einsum("fba,fb->fa", Jj, w))
+    _scatter_add(out, fi, torch.einsum("fba,fb->fa", Ji, w), reduce is not None)
+    _scatter_add(out, fj, torch.einsum("fba,fb->fa", Jj, w), reduce is not None)
+    if reduce is not None:
+        out = reduce(out)
     return out + prior_diag * v
 
 
-def _precond_blocks(KF, dtype, fi, fj, Ji, Jj, info, prior_diag):
+def _precond_blocks(KF, dtype, fi, fj, Ji, Jj, info, prior_diag, reduce=None):
     """Block-diagonal of H (KF, D, D), NOT inverted (the chain
-    preconditioner's diagonal)."""
+    preconditioner's diagonal). `reduce` as in `_hv`."""
     blocks = torch.zeros((KF, D, D), dtype=dtype, device=Ji.device)
-    blocks.index_add_(0, fi, torch.einsum("fba,fb,fbc->fac", Ji, info, Ji))
-    blocks.index_add_(0, fj, torch.einsum("fba,fb,fbc->fac", Jj, info, Jj))
+    _scatter_add(blocks, fi, torch.einsum("fba,fb,fbc->fac", Ji, info, Ji), reduce is not None)
+    _scatter_add(blocks, fj, torch.einsum("fba,fb,fbc->fac", Jj, info, Jj), reduce is not None)
+    if reduce is not None:
+        blocks = reduce(blocks)
     return blocks + torch.diag_embed(prior_diag) + 1e-6 * torch.eye(D, dtype=dtype, device=Ji.device)
 
 
@@ -458,8 +507,10 @@ def chain_factor(Dblk, L, direct_n=256):
     system diag(Dblk) + sub-diagonal L (L[k] couples node k-1 -> k, L[0]=0):
     log2 levels of batched 15x15 block algebra down to `direct_n` nodes, and
     the remainder solved densely by one Cholesky factorization (Jacobi-
-    scaled: the raw diagonal spans 1e0-1e8). Returns (levels, tail) for
-    `chain_solve`."""
+    scaled: the raw diagonal spans 1e0-1e8). The factorization is float64
+    whatever the input's dtype (module docstring). Returns (levels, tail)
+    for `chain_solve`."""
+    Dblk, L = Dblk.to(torch.float64), L.to(torch.float64)
     dtype, dev = Dblk.dtype, Dblk.device
     B = Dblk.shape[-1]
     eye = torch.eye(B, dtype=dtype, device=dev)
@@ -498,7 +549,9 @@ def chain_factor(Dblk, L, direct_n=256):
 
 
 def chain_solve(levels, tail, r):
-    """Apply the cyclic-reduction factorization: solve M x = r, r (KF, D)."""
+    """Apply the cyclic-reduction factorization: solve M x = r, r (KF, D),
+    in float64; x comes back in r's dtype."""
+    out_dtype, r = r.dtype, r.to(torch.float64)
     stack = []
     for lv in levels:
         r_e, r_o = r[0::2], r[1::2]
@@ -509,7 +562,9 @@ def chain_solve(levels, tail, r):
         r = r_e - _mv(lv["A"], r_o_shift) - _mv(lv["C"], r_o_p)
         stack.append(r_o)
     chol, d, n_tail = tail
-    x = torch.cholesky_solve((r.reshape(-1) / d)[:, None], chol)[:, 0] / d
+    # two triangular solves: cholesky_solve copies the whole factor each call
+    y = torch.linalg.solve_triangular(chol, (r.reshape(-1) / d)[:, None], upper=False)
+    x = torch.linalg.solve_triangular(chol.T, y, upper=True)[:, 0] / d
     x = x.reshape(n_tail, r.shape[1])
     for lv, r_o in zip(reversed(levels), reversed(stack)):
         n_odd = r_o.shape[0]
@@ -519,7 +574,7 @@ def chain_solve(levels, tail, r):
         x = x.new_zeros((lv["n"], x.shape[1]))
         x[0::2] = x_e
         x[1::2] = x_o
-    return x
+    return x.to(out_dtype)
 
 
 def _pcg(hv, precond, b, n_iter):
@@ -555,13 +610,15 @@ def _priors(cfg: BackendConfig, slot0, active, vb_obs, gpsw3):
     return prior + gpsw, gpsw
 
 
-def _rhs(nn, fi, fj, Ji, Jj, e, info, R, t, gps_pos, gpsw):
+def _rhs(nn, fi, fj, Ji, Jj, e, info, R, t, gps_pos, gpsw, reduce=None):
     """b = sum_f J^T W e, minus the GPS residual terms (r = R^T (p_gps - t)
-    under t' = t + R dt, J_dt = -I)."""
+    under t' = t + R dt, J_dt = -I). `reduce` as in `_hv`."""
     w_e = info * e
     b = Ji.new_zeros((nn, D))
-    b.index_add_(0, fi, torch.einsum("fba,fb->fa", Ji, w_e))
-    b.index_add_(0, fj, torch.einsum("fba,fb->fa", Jj, w_e))
+    _scatter_add(b, fi, torch.einsum("fba,fb->fa", Ji, w_e), reduce is not None)
+    _scatter_add(b, fj, torch.einsum("fba,fb->fa", Jj, w_e), reduce is not None)
+    if reduce is not None:
+        b = reduce(b)
     gps_r = torch.zeros_like(b)
     gps_r[:, 3:6] = _mv(R.transpose(-1, -2), gps_pos - t)
     return b - gpsw * gps_r
@@ -675,6 +732,19 @@ def optimize(cfg: BackendConfig, g: PoseGraph, gn_iterations: Optional[int] = No
     factor touches are pinned the same way. `gn_iterations` /
     `pcg_iterations` override the config (the deferred loop-event solve runs
     one sweep per frame)."""
+    n_gn = cfg.gn_iterations if gn_iterations is None else gn_iterations
+    n_pcg = cfg.pcg_iterations if pcg_iterations is None else pcg_iterations
+    return _gauss_newton(cfg, g, n_gn, n_pcg)
+
+
+def _gauss_newton(cfg: BackendConfig, g: PoseGraph, n_gn: int, n_pcg: int, kf_slots=None, loop_slots=None,
+                  reduce=None) -> PoseGraph:
+    """`optimize`'s sweeps. With `kf_slots` / `loop_slots` and `reduce`, this
+    rank linearizes only its factor slots (`_graph_terms`) and `reduce` sums
+    the factor parts of B, b, the diagonal blocks and every H @ v across the
+    shards before the replicated terms (priors, GPS) are added once; the
+    chain factorization, PCG, trust region and retraction run whole on
+    every rank (`parallel.sharded_optimize`)."""
     KF = cfg.max_keyframes
     dtype, dev = g.t.dtype, g.t.device
     idx = torch.arange(KF, device=dev)
@@ -683,16 +753,16 @@ def optimize(cfg: BackendConfig, g: PoseGraph, gn_iterations: Optional[int] = No
     imu_next = torch.cat([g.imu_mask[1:], torch.zeros(1, dtype=torch.bool, device=dev)])
     vb_obs = active & (g.imu_mask | imu_next)
     prior_diag, gpsw = _priors(cfg, idx == 0, active, vb_obs, g.prior_info * g.prior_mask[:, None])
-    n_gn = cfg.gn_iterations if gn_iterations is None else gn_iterations
-    n_pcg = cfg.pcg_iterations if pcg_iterations is None else pcg_iterations
     for _ in range(n_gn):
-        fi, fj, Ji, Jj, e, info, B = _graph_terms(cfg, g)
-        b = _rhs(KF, fi, fj, Ji, Jj, e, info, g.R, g.t, g.prior_pos, gpsw)
-        Dblk = _precond_blocks(KF, dtype, fi, fj, Ji, Jj, info, prior_diag)
+        fi, fj, Ji, Jj, e, info, B = _graph_terms(cfg, g, kf_slots, loop_slots)
+        if reduce is not None:
+            B = reduce(B)
+        b = _rhs(KF, fi, fj, Ji, Jj, e, info, g.R, g.t, g.prior_pos, gpsw, reduce)
+        Dblk = _precond_blocks(KF, dtype, fi, fj, Ji, Jj, info, prior_diag, reduce)
         levels, tail = chain_factor(Dblk, B)
         # PCG preconditioned by the EXACT chain solve: iterations ~ loops, not keyframes
-        dx = _pcg(lambda v: _hv(fi, fj, Ji, Jj, info, prior_diag, v), lambda r: chain_solve(levels, tail, r), b,
-                  n_pcg)
+        dx = _pcg(lambda v: _hv(fi, fj, Ji, Jj, info, prior_diag, v, reduce), lambda r: chain_solve(levels, tail, r),
+                  b, n_pcg)
         R, t, vel, bg, ba = _retract(g.R, g.t, g.vel, g.bg, g.ba, dx, active, cfg.max_step)
         g = g._replace(R=R, t=t, vel=vel, bg=bg, ba=ba)
     return g

@@ -126,7 +126,7 @@ def scan_to_map(
     surf_pts: torch.Tensor,     # (3, Ns)
     surf_mask: torch.Tensor,
     init_pose: Optional[se3.Pose] = None,
-    reduce=None,                # cross-device sum of (H, b, nc, ns); the sharded path is not ported
+    reduce=None,                # cross-rank sum of (H, b, nc, ns): parallel.sharded_scan_to_map
 ) -> Scan2MapResult:
     if init_pose is None:
         init_pose = se3.identity(surf_pts.dtype, device=surf_pts.device)

@@ -112,13 +112,17 @@ def _flat(pw: torch.Tensor) -> torch.Tensor:
     return pw if pw.dim() == 2 else pw.transpose(0, 1).reshape(3, -1)
 
 
-def icp_loop(cfg: ICPConfig, source: torch.Tensor, init_pose: se3.Pose, search):
+def icp_loop(cfg: ICPConfig, source: torch.Tensor, init_pose: se3.Pose, search, reduce=None):
     """The cached-search GN iteration. `search(pose) -> (coef (4, N), valid
     (N,))` produces plane correspondences at a pose. `source` is (3, N) with
     an unbatched pose, or (B, 3, N) with a pose of batch B (the batched
     solver: correspondences flattened frame-major to (4, B*N), one 6x6 system
     per frame). One search per round, then the round's GN iterations against
-    the cached planes. Returns (pose, done, iters, H, coef, valid)."""
+    the cached planes. Returns (pose, done, iters, H, coef, valid).
+
+    `reduce`, when given, combines (H, b, err) across the ranks that hold
+    the other point shards of the same frames (`parallel.
+    sharded_point_to_plane_icp`), so every rank applies the same update."""
     scfg = cfg.solver
     batch = source.shape[0] if source.dim() == 3 else 0
     n = source.shape[-1] * max(batch, 1)
@@ -132,7 +136,9 @@ def icp_loop(cfg: ICPConfig, source: torch.Tensor, init_pose: se3.Pose, search):
         coef, valid = search(pose)
         done = done | (iters >= scfg.max_iterations)
         for _ in range(chunk):
-            H, b, _ = _linearize_cached(coef, valid, _flat(pose.apply(source)), batch)
+            H, b, err = _linearize_cached(coef, valid, _flat(pose.apply(source)), batch)
+            if reduce is not None:
+                H, b, err = reduce((H, b, err))
             pose, done, iters, _ = solver._gn_update(H, b, pose, done, iters, scfg)
     return pose, done, iters, H, coef, valid
 

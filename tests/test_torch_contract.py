@@ -55,6 +55,7 @@ def test_port_and_app_never_import_jax():
             "import apps.mapping_session_torch, apps.visualize_run_torch; online.parse_args([]);"
             "from pointcloud_slam_tpu_torch.ops import phc; from pointcloud_slam_tpu_torch.models.lio import fusion;"
             "from pointcloud_slam_tpu_torch.utils import checkpoint; checkpoint.save_state, checkpoint.load_state;"
+            "import pointcloud_slam_tpu_torch.parallel; import dryrun_multichip_torch; dryrun_multichip_torch.parse_args([]);"
             "app.build_config(app.parse_args(['--config_file', 'configs/lio/velodyne.yaml']));"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m);"
             "assert not any(m.startswith('pointcloud_slam_tpu.') or m == 'pointcloud_slam_tpu' for m in sys.modules);"
@@ -123,6 +124,8 @@ CONSTRUCTORS = {
     "convert.nav_state_from_numpy": lambda **kw: convert.nav_state_from_numpy(
         jax.tree.map(np.asarray, jst.identity()), **kw).pos,
     "liosam.backend.create": lambda **kw: tbk.create(tbk.BackendConfig(max_keyframes=4, max_loops=2), **kw).R,
+    "synthetic.drifting_circle_graph": lambda **kw: synthetic.drifting_circle_graph(
+        tbk.BackendConfig(max_keyframes=16, max_loops=2), 1, 3, 8, **kw)[0].t,
     "liosam.slam.create_state": lambda **kw: tslam.create_state(
         tslam.SLAMConfig(backend=tbk.BackendConfig(max_keyframes=4, max_loops=2)), **kw).kf_surf,
 }
@@ -167,6 +170,7 @@ DEPLOYED = {
     "apps/run_kitti_torch.py": ["no_such_dir"],
     "tools/soak_online_torch.py": ["--seconds", "0.1"],
     "tools/soak_localization_torch.py": ["--seconds", "0.1"],
+    "tools/dryrun_multichip_torch.py": [],
 }
 
 
@@ -196,7 +200,7 @@ def test_session_defaults_to_the_gpu(tmp_path, capsys):
 @pytest.mark.parametrize("rel", ["apps/run_mapping_online_torch.py", "apps/run_kitti_torch.py",
                                  "apps/mapping_session_torch.py", "apps/visualize_run_torch.py",
                                  "tools/soak_online_torch.py", "tools/soak_localization_torch.py",
-                                 "tools/make_dataset_torch.py"])
+                                 "tools/make_dataset_torch.py", "tools/dryrun_multichip_torch.py"])
 def test_entry_point_help(rel, capsys):
     mod = _load_entry(rel)
     with pytest.raises(SystemExit) as e:
@@ -219,3 +223,13 @@ def test_align_bench_app_runs_on_cpu():
     for name, ln in zip(names, table):
         assert float(ln.split("terr=")[1]) < (0.15 if name.startswith("ndt") else 0.1), ln
     assert "cov: exact knn" in r.stdout and "cov: voxel knn" in r.stdout and "cov: rbf" in r.stdout
+
+
+def test_multichip_dry_run_on_cpu():
+    """tools/dryrun_multichip_torch.py --device cpu: 4 ranks on a gloo group
+    (mesh (2, 2)) run the four sharded calls, every rank's outputs are
+    equal, and the backend's error falls."""
+    r = _run(["tools/dryrun_multichip_torch.py", "--device", "cpu"], timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = r.stdout.strip().splitlines()[-1]
+    assert line.startswith("dryrun_multichip ok: mesh={'dp': 2, 'sp': 2}") and "backend=gloo" in line, line

@@ -278,6 +278,43 @@ def test_backend_optimize_on_card_matches_cpu(cuda):
         assert bool(torch.isfinite(og.t).all()), name
 
 
+@pytest.mark.parametrize("stride,span", [(80, 512), (320, 2048)], ids=["as_written", "scaled"])
+def test_backend_chain_at_4096_keyframes_on_card(cuda, stride, span):
+    """chip_smoke.py phase 14's backend graph on the card: the dry run's
+    drifting circle at 4,096 keyframes, 24 loops laid out as the dry run
+    writes them (they tie only the first 2,352 nodes) or scaled with the
+    node count. Stage by stage: the right-hand side, the diagonal and
+    sub-diagonal blocks, every cyclic-reduction level, the dense tail's
+    Cholesky factor (positive diagonal) and a chain solve are finite, and
+    optimize (3 GN x 24 PCG) lowers the largest position error."""
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.models.liosam import backend as bk
+
+    cfg = bk.BackendConfig(max_keyframes=4096, max_loops=64, keyframe_dist_thresh=0.3, gn_iterations=3,
+                           pcg_iterations=24)
+    g, t_true, t_noisy = synthetic.drifting_circle_graph(cfg, 24, stride, span, device=cuda)
+    KF = cfg.max_keyframes
+    idx = torch.arange(KF, device=cuda)
+    active = idx < g.n
+    imu_next = torch.cat([g.imu_mask[1:], torch.zeros(1, dtype=torch.bool, device=cuda)])
+    prior_diag, gpsw = bk._priors(cfg, idx == 0, active, active & (g.imu_mask | imu_next),
+                                  g.prior_info * g.prior_mask[:, None])
+    fi, fj, Ji, Jj, e, info, B = bk._graph_terms(cfg, g)
+    b = bk._rhs(KF, fi, fj, Ji, Jj, e, info, g.R, g.t, g.prior_pos, gpsw)
+    D = bk._precond_blocks(KF, torch.float32, fi, fj, Ji, Jj, info, prior_diag)
+    levels, tail = bk.chain_factor(D, B)
+    finite = lambda x: bool(torch.isfinite(x).all())
+    assert finite(b) and finite(D) and finite(B)
+    assert all(finite(lv[k]) for lv in levels for k in ("A", "C", "Do_inv"))
+    chol, d, n_tail = tail
+    assert n_tail == 256 and finite(chol) and finite(d) and bool((torch.diagonal(chol) > 0).all())
+    assert finite(bk.chain_solve(levels, tail, b))
+    out = bk.optimize(cfg, g)
+    err0 = np.linalg.norm(t_noisy - t_true, axis=1).max()
+    err1 = np.linalg.norm(out.t.cpu().numpy() - t_true, axis=1).max()
+    assert np.isfinite(err1) and err1 < err0, (err0, err1)
+
+
 def test_slam_step_on_card_matches_cpu(cuda):
     """tests/test_slam.py's out-and-back path (11 frames) through slam_step on
     the card and on the CPU: the same keyframe and loop decisions and the
@@ -678,3 +715,89 @@ def test_phc_merge_on_card_matches_cpu(cuda):
         assert torch.equal(omg.cpu(), omc) and torch.equal(og.cpu()[:, omc], oc[:, omc]), curve
     for a, b in zip(phc.phc_sort(pg, mg, 0.4, 2), phc.phc_sort(pts, mask, 0.4, 2)):
         assert torch.equal(a.cpu(), b)
+
+
+def _four_calls(inp, dev, mesh=None):
+    """tests/test_torch_parallel.py's ICP, LIO update, scan-to-map and
+    1,024-keyframe backend on `dev`: sharded over `mesh` (inputs broadcast
+    from rank 0), or the single-device functions without one. Host outputs."""
+    import test_torch_parallel as tp
+
+    from pointcloud_slam_tpu_torch import convert, parallel, register
+    from pointcloud_slam_tpu_torch.geom import se3
+    from pointcloud_slam_tpu_torch.models import lio
+    from pointcloud_slam_tpu_torch.models.liosam import backend as bk
+    from pointcloud_slam_tpu_torch.models.liosam import scan2map as s2m
+    from pointcloud_slam_tpu_torch.parallel import mesh as pmesh
+
+    rep = pmesh.replicate if mesh is not None else (lambda tree: tree)
+    maps = {k: rep(convert.grid_from_numpy(v, dev)) for k, v in inp["maps"].items()}
+    src = rep(torch.from_numpy(inp["icp"]["src"]).to(dev))
+    B = src.shape[0]
+    icp_cfg = register.ICPConfig()
+    lcfg = tp._lio_cfg()
+    s0 = lio.create_state(lcfg, device=dev)
+    x0, P0 = rep((s0.x, s0.P))
+    pts = rep(torch.from_numpy(inp["lio"]["pts"]).to(dev))
+    ones = torch.ones(pts.shape[1], dtype=torch.bool, device=dev)
+    s2 = {k: rep(torch.from_numpy(np.asarray(v)).to(dev)) for k, v in inp["s2m"].items()}
+    init = se3.Pose(torch.eye(3, device=dev), s2["t"])
+    cfg_big, g_big, _, _ = tp._big_graph(dev)
+    g_big = rep(g_big)
+    if mesh is None:
+        pose, conv, iters = register.batched_point_to_plane_icp(tp.GRID, maps["icp"], src, cfg=icp_cfg)
+        obs = tp.lp._obs_model(lcfg, maps["lio"], pts, torch.sqrt(torch.sum(pts * pts, dim=0)), ones)
+        u = tp.eskf.update_iterated(x0, P0, obs, lcfg.laser_point_cov, lcfg.max_iterations, lcfg.epsi)
+        x, P, l_iters = u.x, u.P, u.iterations
+        res = s2m.scan_to_map(s2m.Scan2MapConfig(), maps["corner"], maps["surf"], s2["c"], s2["cm"], s2["s"],
+                              s2["sm"], init)
+        g = bk.optimize(cfg_big, g_big)
+    else:
+        pose, conv, iters = parallel.sharded_point_to_plane_icp(
+            mesh, tp.GRID, maps["icp"], src, torch.ones((B, src.shape[2]), dtype=torch.bool, device=dev),
+            se3.identity(batch=(B,), device=dev), cfg=icp_cfg)
+        x, P, l_iters, _ = parallel.sharded_lio_update(mesh, lcfg, maps["lio"], x0, P0, pts, ones)
+        res = parallel.sharded_scan_to_map(mesh, s2m.Scan2MapConfig(), maps["corner"], maps["surf"], s2["c"],
+                                           s2["cm"], s2["s"], s2["sm"], init)
+        g = parallel.sharded_optimize(mesh, cfg_big, g_big)
+    out = dict(icp=(pose.R, pose.t, conv, iters), lio=(x.pos, x.rot, P, l_iters),
+               s2m=(res.pose.R, res.pose.t, res.num_corner, res.num_surf, res.degenerate), backend=(g.R, g.t))
+    return {k: tuple(t.cpu() for t in v) for k, v in out.items()}
+
+
+def _two_ranks_on_card(inp):
+    from pointcloud_slam_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(device_type="cuda")
+    return tuple(mesh.shape), _four_calls(inp, torch.device("cuda", torch.cuda.current_device()), mesh)
+
+
+def test_sharded_paths_on_two_ranks_sharing_the_card(cuda):
+    """Two ranks share the card over gloo (mesh (1, 2)) and run the four
+    sharded functions of tests/test_torch_parallel.py on its inputs: both
+    ranks bit for bit equal, each result within tests/test_parallel.py's
+    tolerances of the single-device function on the card (1e-2 ICP, 1e-5
+    LIO, 1e-4 scan-to-map, 5e-4 backend), iterations, counts and flags
+    equal."""
+    import test_torch_parallel as tp
+
+    from pointcloud_slam_tpu_torch import parallel
+
+    icp, lio_in, s2 = tp._icp_inputs(), tp._lio_inputs(), tp._s2m_inputs()
+    s2cfg = tp.s2m.Scan2MapConfig()
+    inp = dict(icp=icp, lio=lio_in, s2m=s2, maps={
+        "icp": tp._port_map(icp["world"], tp.GRID), "lio": tp._port_map(lio_in["world"], tp.GRID),
+        "corner": tp._port_map(s2["cmap_pts"], s2cfg.corner_grid, s2["cmap_mask"]),
+        "surf": tp._port_map(s2["smap_pts"], s2cfg.surf_grid, s2["smap_mask"])})
+    ranks = parallel.launch(_two_ranks_on_card, 2, device="cuda", backend="gloo", args=(inp,), timeout=300)
+    single = _four_calls(inp, cuda)
+    assert all(shape == (1, 2) for shape, _ in ranks)
+    tol = dict(icp=1e-2, lio=1e-5, s2m=1e-4, backend=5e-4)
+    for name, ref in single.items():
+        for a, b in zip(ranks[0][1][name], ranks[1][1][name]):
+            assert torch.equal(a, b), name
+        for a, b in zip(ranks[0][1][name], ref):
+            if a.is_floating_point():
+                torch.testing.assert_close(a, b, rtol=0, atol=tol[name], msg=name)
+            else:
+                assert torch.equal(a, b), name

@@ -285,6 +285,22 @@ def test_chain_solve_matches_dense_and_jax(n, direct_n):
         np.testing.assert_allclose(x, np.asarray(xj), rtol=0, atol=1e-4 * np.abs(x_ref).max())
 
 
+def test_optimize_on_a_partly_tied_4096_keyframe_circle():
+    """The dry run's drifting circle (__graft_entry__.py:116-133) at 4,096
+    keyframes with its loops as written (stride 80, span 512: they tie only
+    the first 2,352 nodes), at chip_smoke.py's 3 GN x 24 PCG: the error
+    falls. The untied chain leaves the reduction's dense tail with tiny
+    eigenvalues: with a float32 chain preconditioner the error grows here,
+    and on the GPU its tail factor was NaN, so the chain runs in float64."""
+    cfg = tbk.BackendConfig(max_keyframes=4096, max_loops=64, keyframe_dist_thresh=0.3, gn_iterations=3,
+                            pcg_iterations=24)
+    g, t_true, t_noisy = tsyn.drifting_circle_graph(cfg, 24, 80, 512, device="cpu")
+    out = tbk.optimize(cfg, g)
+    err0 = np.linalg.norm(t_noisy - t_true, axis=1).max()
+    err1 = np.linalg.norm(out.t.numpy() - t_true, axis=1).max()
+    assert np.isfinite(err1) and err1 < err0, (err0, err1)
+
+
 def _graph_close(gt, gj, n, tol_t, tol_R):
     np.testing.assert_allclose(gt.t.numpy()[:n], np.asarray(gj.t)[:n], atol=tol_t)
     np.testing.assert_allclose(gt.R.numpy()[:n], np.asarray(gj.R)[:n], atol=tol_R)

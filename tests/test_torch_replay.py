@@ -207,20 +207,28 @@ RING_BAG_FRAMES = 30
 RING_BAG_MAX_ERR_M = 0.10   # PERF.md §2's localization bound; measured 0.045 m on the CPU
 
 
-def test_slam_app_tracks_a_ring_structured_bag(tmp_path):
-    """SLAM on recorded input, held to the ground truth: a bag of 30 sweeps of
-    a 16 x 1,800 spinning LiDAR ray-cast in a hall of walls, pillars and
-    crates (`io.synthetic.write_ring_bag`: each ring an ordered azimuth sweep,
-    so the LOAM front end picks real edges and planes), replayed by
-    apps/run_slam_offline_torch.py --bag_file. Every frame's pose and every
-    keyframe's pose lie within RING_BAG_MAX_ERR_M of the ground truth (in the
-    first sweep's frame)."""
+@pytest.fixture(scope="module")
+def ring_slam(tmp_path_factory):
+    """A bag of 30 sweeps of a 16 x 1,800 spinning LiDAR ray-cast in a hall of
+    walls, pillars and crates (`io.synthetic.write_ring_bag`: each ring an
+    ordered azimuth sweep, so the LOAM front end picks real edges and
+    planes), replayed by apps/run_slam_offline_torch.py --bag_file
+    --save_artifacts. Returns (SLAM output dir, ground truth R, t)."""
     from pointcloud_slam_tpu_torch.io import synthetic
 
-    bag, out = tmp_path / "ring.bag", tmp_path / "slam"
+    root = tmp_path_factory.mktemp("ring")
+    bag, out = root / "ring.bag", root / "slam"
     _, Rs, ts = synthetic.write_ring_bag(str(bag), n_frames=RING_BAG_FRAMES)
     _load("apps/run_slam_offline_torch.py", "slam_app_ring").main(
-        ["--bag_file", str(bag), "--device", "cpu", "--out_dir", str(out)])
+        ["--bag_file", str(bag), "--device", "cpu", "--save_artifacts", "--out_dir", str(out)])
+    return out, Rs, ts
+
+
+def test_slam_app_tracks_a_ring_structured_bag(ring_slam):
+    """SLAM on recorded input, held to the ground truth: every frame's pose
+    and every keyframe's pose of the ring bag's replay lie within
+    RING_BAG_MAX_ERR_M of the ground truth (in the first sweep's frame)."""
+    out, Rs, ts = ring_slam
     gt = np.einsum("ji,nj->ni", Rs[0], ts - ts[0])
     est = np.loadtxt(out / "traj_tum.txt")[:, 1:4]
     assert est.shape == gt.shape
@@ -230,6 +238,34 @@ def test_slam_app_tracks_a_ring_structured_bag(tmp_path):
     frame = [int(np.argmin(np.linalg.norm(est - p, axis=1))) for p in kf]
     kf_err = np.linalg.norm(kf - gt[frame], axis=1)
     assert len(kf) >= 5 and kf_err.max() < RING_BAG_MAX_ERR_M, np.round(kf_err, 4)
+
+
+def test_feature_localization_tracks_the_ring_bag(ring_slam, tmp_path, capsys):
+    """The feature-LOAM localization app (`--feature_map_dir`) on the ring
+    bag's sweeps against the corner / surface tiles that
+    apps/construct_full_map_torch.py builds from the SLAM replay's
+    keyframes: every frame within RING_BAG_MAX_ERR_M of the ground truth,
+    none lost. Its front end keeps `spread_size`'s features over all rings."""
+    from pointcloud_slam_tpu_torch.io import synthetic
+
+    out, Rs, ts = ring_slam
+    _load("apps/construct_full_map_torch.py", "full_map_ring").main(
+        [str(out), "--out", str(tmp_path / "full.pcd"), "--feature_maps", str(tmp_path / "tiles"), "--device", "cpu"])
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    world = synthetic.make_box_world(0)
+    for k in range(RING_BAG_FRAMES):   # the bag's sweeps (write_ring_bag's seeds), sensor frame
+        pts, _, _ = synthetic.spinning_scan(world, Rs[k], ts[k], seed=k)
+        pcd.write_pcd(str(frames / f"frame_{k:06d}.pcd"), pts)
+    _load("apps/run_localization_torch.py", "loc_ring").main(
+        ["--feature_map_dir", str(tmp_path / "tiles"), "--data_dir", str(frames), "--device", "cpu",
+         "--n_points", str(pts.shape[0]), "--out_dir", str(tmp_path / "loc")])
+    assert "lost: 0" in capsys.readouterr().out
+    gt = np.einsum("ji,nj->ni", Rs[0], ts - ts[0])
+    est = np.loadtxt(tmp_path / "loc" / "traj_tum.txt")[:, 1:4]
+    assert est.shape == gt.shape
+    err = np.linalg.norm(est - gt, axis=1)
+    assert err.max() < RING_BAG_MAX_ERR_M, np.round(err, 4)
 
 
 def test_spread_size_covers_every_ring():
