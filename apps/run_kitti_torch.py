@@ -89,6 +89,7 @@ def main(argv=None):
         raise SystemExit("--device cuda: no CUDA device is available")
     from pointcloud_slam_tpu_torch import ops, register
     from pointcloud_slam_tpu_torch.geom import se3
+    from pointcloud_slam_tpu_torch.ops import small_eigh
     from pointcloud_slam_tpu_torch.utils import checkpoint as ck
 
     paths = frame_paths(args.data_dir)
@@ -134,6 +135,8 @@ def main(argv=None):
     Rs, ts = torch.stack(poses_R).cpu().numpy(), torch.stack(poses_t).cpu().numpy()   # the one read back
     wall = time.perf_counter() - t0
     print(f"done: {len(paths)} frames, {len(paths) / max(wall, 1e-9):.2f} FPS")
+    # NDT's eigenvalues are kernel K6 on the card (0 on the CPU)
+    print(f"kernel launches: K6 {small_eigh.eigh.launches + small_eigh.eigvalsh.launches}")
     ck.save_poses_kitti(args.out, Rs, ts)
     print(f"KITTI poses -> {args.out}")
 

@@ -10,8 +10,12 @@ directory of `frame_%06d.pcd` scans (`--data_dir`), or the synthetic loop
 taken along a circle). Recorded scans go through the range-image projection
 and LOAM feature extraction first; every frame then goes through the port's
 `slam_step` (scan-to-map + keyframes + dual loop closure + pose graph).
-Outputs under --out_dir: traj_tum.txt, poses_kitti.txt, graph.g2o, and with
-`--save_artifacts` each keyframe's Scans/*.pcd and SCDs/*.scd.
+Outputs under --out_dir: traj_tum.txt, poses_kitti.txt, graph.g2o, with
+`--save_artifacts` each keyframe's Scans/*.pcd and SCDs/*.scd, and with
+`--debug loop_constraints,effect_points` those channels as npz files under
+debug/ (the JAX app's array names: `pairs`, `endpoints_i`, `endpoints_j` on
+a frame that closes a loop; `pts`, the newest keyframe's masked surface
+points, on a keyframe). A channel reads from the device only when enabled.
 
     python apps/run_slam_offline_torch.py --synthetic 40                 # on the GPU
     python apps/run_slam_offline_torch.py --bag_file seq/data.bag
@@ -43,6 +47,9 @@ def parse_args(argv=None):
                    help="stencil-baked corner/surf local maps (one lookup per k-NN query inside "
                         "scan-to-map); 0 = the unbaked layout")
     p.add_argument("--save_artifacts", action="store_true", help="per-keyframe Scans/*.pcd and SCDs/*.scd")
+    p.add_argument("--debug", default="", help="comma-separated debug channels to record "
+                   "(loop_constraints, effect_points) — the reference's debug-topic role "
+                   "(mapOptmization.cpp:1020-1068); written as npz under <out_dir>/debug")
     p.add_argument("--device", default="cuda", help="torch device the frame step runs on")
     return p.parse_args(argv)
 
@@ -98,6 +105,25 @@ def build_config(args):
                            n_surf=args.n_surf, scan2map=s2m_cfg)
 
 
+def record_debug(dbg, k, state, out):
+    """Debug-topic analogues into `dbg` (a utils.log.DebugChannels) for
+    frame k: on a frame that closes a loop, the loop-constraint pairs and
+    their endpoints (visualizeLoopClosure's MarkerArray role); on a
+    keyframe, the newest keyframe's masked surface points (the effect-points
+    cloud role). The JAX app's channel and array names. Each channel reads
+    back from the device only when it is enabled."""
+    import torch
+
+    if dbg.enabled("loop_constraints") and bool(out.loop_detected):
+        nl = int(state.graph.n_loops)
+        li, lj = state.graph.loop_i[:nl].long(), state.graph.loop_j[:nl].long()
+        dbg.publish("loop_constraints", k, pairs=torch.stack([li, lj], 1).to(torch.int32),
+                    endpoints_i=state.graph.t[li], endpoints_j=state.graph.t[lj])
+    if dbg.enabled("effect_points") and bool(out.is_keyframe):
+        kk = int(state.graph.n) - 1
+        dbg.publish("effect_points", k, pts=state.kf_surf[kk][:, state.kf_surf_mask[kk]])
+
+
 def main(argv=None):
     args = parse_args(argv)
     if not (args.synthetic > 0 or args.data_dir or args.bag_file):
@@ -107,6 +133,7 @@ def main(argv=None):
     from pointcloud_slam_tpu_torch.geom import so3
     from pointcloud_slam_tpu_torch.models.liosam import features, projection, slam
     from pointcloud_slam_tpu_torch.utils import checkpoint as ck
+    from pointcloud_slam_tpu_torch.utils import log as plog
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -116,6 +143,7 @@ def main(argv=None):
     state = slam.create_state(cfg, device=device)
     pcfg = projection.ProjectionConfig()
     fcfg = features.FeatureConfig()
+    dbg = plog.DebugChannels(os.path.join(args.out_dir, "debug"), enabled=[c for c in args.debug.split(",") if c])
 
     def soa(x):
         return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32).T)).to(device)
@@ -151,7 +179,7 @@ def main(argv=None):
 
     times, poss, rots, looped = [], [], [], []
     t_start = time.perf_counter()
-    for step_stamp, stamp, c, cm, s, sm in frames():
+    for k, (step_stamp, stamp, c, cm, s, sm) in enumerate(frames()):
         state, out = slam.slam_step(cfg, state, c, cm, s, sm, time_sec=step_stamp)
         # unbounded trajectories: double the stores before they saturate
         if slam.needs_growth(cfg, state):
@@ -162,10 +190,12 @@ def main(argv=None):
             kk = int(state.graph.n) - 1
             ck.save_keyframe_artifacts(args.out_dir, kk, state.kf_surf[kk], state.kf_surf_mask[kk],
                                        state.sc_descs[kk], state.kf_corner[kk], state.kf_corner_mask[kk])
+        record_debug(dbg, k, state, out)
         times.append(stamp)
         poss.append(out.pose.t)
         rots.append(out.pose.R)
         looped.append(out.loop_detected)
+    dbg.close()
     if not times:
         raise SystemExit("no scans to replay")
     pos = torch.stack(poss).cpu().numpy()   # one read back for the whole run

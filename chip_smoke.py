@@ -18,8 +18,11 @@ kernel on them against its plain PyTorch version. Phases:
   4. K1 against its plain version at the map's size, k=20, and the map's
      covariances against the same function over the plain k-NN; K1 with a
      scan's worth of queries (6,144) over the map at k=5 and k=20; a sweep
-     of k (2 .. 32, instances and the k between them) at a ragged shape;
-     exact ties across the kernel's database splits, in K1 and K2
+     of k (2 .. 32, instances and the k between them, and 33, 40, 64, 100,
+     which run in rounds) at a ragged shape, and the rounds bit for bit on
+     integer coordinates; the whole call's and each round's time at k=40
+     and 64 on the map; exact ties across the kernel's database splits, in
+     K1 and K2
   5. kernel K2 (exact 1-NN): its path is its public entry point (the JAX
      package has no other caller either), one call on a 20,000-point frame
      against another with the count reset before it; then K2 against its
@@ -35,8 +38,10 @@ kernel on them against its plain PyTorch version. Phases:
      plain k-NN's; then apps/align_bench_torch.py
   8. NDT on the same pair: P2D align on a plain and a stencil-baked target,
      D2D align from the voxelized source, and VGICP on RBF source
-     covariances: ms per align, translation error, host syncs per align,
-     launches and GPU busy from a torch.profiler window
+     covariances: ms per align, translation error, host syncs per align
+     (gate: 0), K6 launches per align, launches and GPU busy from a
+     torch.profiler window. K6's count is reset before this phase and read
+     after it, and so for each path of phases 9 and 10
   9. LIO-SAM SLAM at bench.py config 6's full shapes (bench.py:720-731:
      512 keyframes with 480 pre-populated, 64 loops, 512 corner / 2048
      surface points a frame, baked local maps; keyframes every 0.3 m, 3 GN
@@ -44,21 +49,29 @@ kernel on them against its plain PyTorch version. Phases:
      shape, then the revisit shape at 4,096 keyframes (4,064 pre-populated)
      over 8 frames; frames/s, final error, loops, the fresh shape's frame-0
      latch and drift per metre, per-frame p50/p99 and launches, host reads,
-     host syncs and GPU busy per frame of each class (plain, loop, drain),
-     peak memory; then apps/run_slam_offline_torch.py --synthetic 40. No
-     hand-written kernel lies on this path (the local maps' k-NN is the
-     voxel hash's): K1 and K2 are counted and must stay at 0
+     host syncs (gate: every frame exactly its counted reads), K6 launches
+     and GPU busy per frame of each class (plain, loop, drain), peak
+     memory; then apps/run_slam_offline_torch.py --synthetic 40. K6 runs
+     scan-to-map's and NDT's eigendecompositions; K1 and K2 (the local maps'
+     k-NN is the voxel hash's) are counted and must stay at 0
  10. prior-map localization at bench.py config 8's full shape (bench.py:
      590-694: the feature world, 64 frames of 512 corner / 2,048 surface
      points on a 3 m circle, constant-velocity prediction, 6 GN
      iterations): frames/s, per-frame p50/p99, launches, host syncs and GPU
-     busy a frame, peak memory, max error, lost frames; the teleport
-     relocalization and its latency; NDT localization at run_localization's
-     defaults (8,192 points against the 60,000-point room, baked target,
-     16 frames) with the same fields; apps/run_localization_torch.py
-     --synthetic 16 with --method ndt and loam. Gates: error < 0.10 m and 0
-     lost (LOAM chain, NDT chain, both apps), relocalization triggered and
-     recovered within 0.05 m. K1 and K2 must stay at 0 launches
+     busy a frame, K6 launches a frame, peak memory, max error, lost
+     frames; the teleport relocalization and its latency; NDT localization
+     at run_localization's defaults (8,192 points against the 60,000-point
+     room, baked target, 16 frames) with the same fields;
+     apps/run_localization_torch.py --synthetic 16 with --method ndt and
+     loam. Gates: error < 0.10 m and 0 lost (LOAM chain, NDT chain, both
+     apps), relocalization triggered and recovered within 0.05 m, 0 host
+     syncs a frame on both chains. K1 and K2 must stay at 0 launches. Then
+     K6 against its plain version on the matrices its call sites gave it
+     (scan-to-map's eigh and eigvalsh, NDT's eigvalsh; 6 x 6 float32, and
+     the same in float64) and on batches of 24 and 1,000 of them turned by
+     random rotations: eigenvalues within 1e-5 (f32) / 1e-12 (f64) x
+     max|lambda|, projectors within 1e-4 away from the thresholds; K6's ms
+     (one call at a time, back to back) beside torch.linalg.eigh's
  11. recorded data: tools/make_dataset_torch.py writes a 20-frame LIO
      dataset and its bag under build/; the mapping app's directory, native
      bag and Python bag sources must build the same frames; its three
@@ -92,10 +105,15 @@ kernel on them against its plain PyTorch version. Phases:
      tools/soak_localization_torch.py for 20 s at config 8's shapes (gates:
      the injected loss recovered, final error < 0.10 m); 60 frames of the
      synthetic KITTI street at 30,000 points through apps/run_kitti_torch.py
-     with --algo icp, ndt and vgicp (frames/s; gates: KITTI_MAX_ERR_M); the
-     session CLI (start --mode fast --run --synthetic 20, save-map,
-     pub-occ-map, stop) and its files. K1 and K2 must stay at 0 launches
- 14. done
+     with --algo icp, ndt and vgicp (frames/s, K6 launches a frame; gates:
+     KITTI_MAX_ERR_M); the session CLI (start --mode fast --run --synthetic
+     20, save-map, pub-occ-map, stop) and its files. K1 and K2 must stay at
+     0 launches; K6 is counted in the localization soak and the NDT KITTI
+     run
+ 14. multi-device parallelism: the sharded ICP, LIO update, scan-to-map
+     and backend on 4 ranks sharing the card over gloo (mesh (2, 2)) and on
+     1 rank over NCCL, against the single device; then the dry run
+ 15. done
 
 Every timed K1 / K2 shape prints what the wrapper's plan ran it with: the
 instance (list length), R (queries per thread, always 1) and S (database
@@ -199,14 +217,18 @@ def compare_knn(bf_knn, q, db, k):
 
 def plan_fields(bf_knn, q, db, k):
     """What the wrapper runs the kernel with at this shape, for the phase line."""
-    instance, splits = bf_knn.plan(q.shape[1], db.shape[1], k)
+    layout = bf_knn.plan(q.shape[1], db.shape[1], k)
+    if k > bf_knn.MAX_K:
+        return dict(rounds=[dict(rows=rows, instance=instance, S=splits) for _, rows, instance, splits in layout], R=1)
+    instance, splits = layout
     return dict(instance=instance, R=1, S=splits)
 
 
 def sweep_k(bf_knn, q, db, ks):
     """K1 against its plain version for every k of `ks` (d2 at rtol 1e-5 /
-    atol 1e-6, index sets equal away from near-ties, rows ascending); a k
-    above MAX_K must raise. Returns {k: max |d2 err|}; raises on a mismatch."""
+    atol 1e-6, index sets equal away from near-ties, rows ascending; a k
+    above MAX_K runs in rounds). Returns {k: max |d2 err|}; raises on a
+    mismatch."""
     import torch
 
     pd2, pidx = bf_knn.knn_plain(q, db, k=max(ks) + 1)
@@ -221,13 +243,43 @@ def sweep_k(bf_knn, q, db, ks):
         same = (torch.sort(idx, dim=0).values == torch.sort(pidx[:k], dim=0).values).all(dim=0)
         check(bool(same[clear].all()), f"k={k}: {int((~same & clear).sum())} index sets differ away from ties")
         errs[k] = float((d2 - pd2[:k]).abs().max())
-    try:
-        bf_knn.knn(q, db, k=bf_knn.MAX_K + 1)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError(f"k={bf_knn.MAX_K + 1} did not raise on the card")
     return errs
+
+
+def exact_rounds(bf_knn, ks, n=3001, m=20_000):
+    """K1 above MAX_K on integer coordinates (exact distances, masses of
+    ties across every round edge): d2 and idx equal to knn_plain bit for
+    bit at every k of `ks`. Returns the share of queries whose distance at
+    the first round edge ties across it; raises on a difference."""
+    import torch
+
+    g = np.random.default_rng(9)
+    q = torch.from_numpy(g.integers(-8, 9, size=(3, n)).astype(np.float32)).cuda()
+    db = torch.from_numpy(g.integers(-8, 9, size=(3, m)).astype(np.float32)).cuda()
+    pd2, pidx = bf_knn.knn_plain(q, db, k=max(ks))
+    for k in ks:
+        d2, idx = bf_knn.knn(q, db, k=k)
+        torch.cuda.synchronize()
+        check(torch.equal(d2, pd2[:k]) and torch.equal(idx, pidx[:k]), f"k={k}: rounds differ from knn_plain on ties")
+    edge = bf_knn.MAX_K
+    return float((pd2[edge - 1] == pd2[edge]).float().mean())
+
+
+def round_times(bf_knn, q, db, k):
+    """K1 at k > MAX_K: the whole call's ms (one at a time, back to back) and
+    each round's, re-run on the call's own outputs (a round rewrites its rows
+    from the final rows before it), with its plan."""
+    d2, idx = bf_knn.knn(q, db, k=k)
+    rounds = []
+    for row0, rows, instance, splits in bf_knn.plan(q.shape[1], db.shape[1], k):
+        def one(row0=row0, rows=rows, instance=instance, splits=splits):
+            bf_knn.search_round(q, db, d2, idx, row0, rows, instance, splits)
+        rounds.append(dict(row0=row0, rows=rows, instance=instance, S=splits, ms=cuda_ms(one),
+                           ms_back_to_back=cuda_ms_back_to_back(one)))
+    return dict(k=k, n=int(q.shape[1]), m=int(db.shape[1]), ms=cuda_ms(lambda: bf_knn.knn(q, db, k=k)),
+                ms_back_to_back=cuda_ms_back_to_back(lambda: bf_knn.knn(q, db, k=k)),
+                plain_ms=cuda_ms(lambda: bf_knn.knn_plain(q, db, k=k)),
+                bound_ms=knn_bound_ms(q.shape[1], db.shape[1], k)[0], rounds=rounds)
 
 
 def check_split_ties(bf_knn, cloud, k):
@@ -400,6 +452,137 @@ def count_syncs(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def k6_launches():
+    """K6's launch count: its two wrappers, `eigh` and `eigvalsh`."""
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    return small_eigh.eigh.launches + small_eigh.eigvalsh.launches
+
+
+def reset_k6():
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    small_eigh.eigh.launches = small_eigh.eigvalsh.launches = 0
+
+
+def capture_eigh_inputs(fn):
+    """fn() with every matrix batch K6 is launched on recorded: [(A, with
+    eigenvectors)], copies of the call sites' own inputs."""
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    seen, launch = [], small_eigh._launch
+
+    def spy(A, vectors):
+        seen.append((A.detach().clone(), vectors))
+        return launch(A, vectors)
+
+    small_eigh._launch = spy
+    try:
+        fn()
+    finally:
+        small_eigh._launch = launch
+    return seen
+
+
+def k6_bound_ms(A, vectors):
+    """The least time an H100 could take for K6 on A (B, n, n): the larger of
+    the bytes it must move (A read once, w and V written once) over 3.35
+    TB/s and the operations of the sweeps this data needs (counted with
+    `eigh_jacobi_mirror` on the same input: per rotation 12 n + 44 flops
+    with the eigenvectors, 6 n + 32 without, atan2 and sincos at 20 each)
+    over 67 TFLOP/s (FP32) or 33.5 (FP64). Returns (ms, "bytes" or
+    "operations"); a single launch's latency lies far above either."""
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    B, n = A.reshape(-1, A.shape[-1], A.shape[-1]).shape[:2]
+    size = A.element_size()
+    by = size * B * (n * n + n + (n * n if vectors else 0))
+    sweeps = int(small_eigh.eigh_jacobi_mirror(A)[2].sum())
+    ops = sweeps * n * (n - 1) // 2 * ((12 * n + 44) if vectors else (6 * n + 32))
+    t_bytes, t_ops = by / 3.35e12 * 1e3, ops / (67e12 if size == 4 else 33.5e12) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def compare_eigh(A, thresholds):
+    """K6 against its plain version (torch.linalg.eigh) on card tensors A
+    (..., n, n), float32 and float64: eigenvalues within 1e-5 / 1e-12 x
+    max|lambda|, eigvalsh's within the same of eigh's, projectors
+    V diag(w > t) V^T within 1e-4 for each t of `thresholds` on the matrices
+    with no eigenvalue within 1e-3 relative of t. Returns the max errors;
+    raises when a check fails."""
+    import torch
+
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    out = {}
+    for name, dt, tol in (("f32", torch.float32, 1e-5), ("f64", torch.float64, 1e-12)):
+        a = A.to(dt)
+        w, V = small_eigh.eigh(a)
+        wv = small_eigh.eigvalsh(a)
+        torch.cuda.synchronize()
+        wp, Vp = small_eigh.eigh_plain(a)
+        scale = wp.abs().amax(dim=-1, keepdim=True)
+        rel = float(((w - wp).abs() / scale).max())
+        rel_v = float(((wv - wp).abs() / scale).max())
+        check(rel <= tol and rel_v <= tol, f"K6 {name}: eigenvalues off by {rel} / {rel_v} x max|lambda| (tol {tol})")
+        proj, clear_n = 0.0, 0
+        for t in thresholds:
+            clear = ((wp - t).abs() > 1e-3 * abs(t)).all(dim=-1)
+            P = (V * (w > t).to(dt)[..., None, :]) @ V.mT
+            Pp = (Vp * (wp > t).to(dt)[..., None, :]) @ Vp.mT
+            if bool(clear.any()):
+                proj = max(proj, float((P - Pp)[clear].abs().max()))
+            clear_n += int(clear.sum())
+        check(proj <= 1e-4, f"K6 {name}: projectors differ by {proj}")
+        out[name] = dict(eig_rel_err=rel, eigvalsh_rel_err=rel_v, eig_abs_err=float((w - wp).abs().max()),
+                         projector_err=proj, projectors_compared=clear_n)
+    return out
+
+
+def k6_times(A):
+    """K6's ms on A (one call at a time, back to back), eigvalsh's, the
+    plain version's, which is the library call (torch.linalg.eigh, reading
+    its info back), torch.linalg.eigvalsh's, and the bound."""
+    import torch
+
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    bound, bound_by = k6_bound_ms(A, True)
+    plain = cuda_ms(lambda: small_eigh.eigh_plain(A), reps=20)
+    return dict(batch=int(A.reshape(-1, 6, 6).shape[0]), dtype=str(A.dtype).split(".")[1],
+                ms=cuda_ms(lambda: small_eigh.eigh(A), reps=20),
+                ms_back_to_back=cuda_ms_back_to_back(lambda: small_eigh.eigh(A)),
+                eigvalsh_ms=cuda_ms(lambda: small_eigh.eigvalsh(A), reps=20), plain_ms=plain, library_ms=plain,
+                library_eigvalsh_ms=cuda_ms(lambda: torch.linalg.eigvalsh(A), reps=20),
+                bound_ms=bound, bound_by=bound_by)
+
+
+def run_k6_check(dev, loam_inputs, ndt_inputs):
+    """K6 against its plain version on the matrices its call sites gave it
+    on the main path (one LOAM frame's scan-to-map eigh and eigvalsh, one
+    NDT align's eigvalsh) and on batches of 24 and 1,000 of them turned by
+    random rotations, at the thresholds 1.0 (config 8) and 100 (the SLAM
+    default); then its times at batch 1 (f32, f64), 24 and 1,000. Returns
+    (errors, times)."""
+    import torch
+
+    sites = {"scan_to_map_eigh": [a for a, v in loam_inputs if v],
+             "scan_to_map_eigvalsh": [a for a, v in loam_inputs if not v],
+             "ndt_eigvalsh": [a for a, _ in ndt_inputs]}
+    check(all(sites.values()) and all(a.shape == (6, 6) for v in sites.values() for a in v),
+          f"K6 call sites: {({k: [tuple(a.shape) for a in v] for k, v in sites.items()})}")
+    g = np.random.default_rng(6)
+    Q = torch.from_numpy(np.linalg.qr(g.normal(size=(1000, 6, 6)))[0].astype(np.float32)).to(dev)
+    every = torch.stack([a for v in sites.values() for a in v])
+    batches = {b: (Q[:b] @ every.repeat(-(-b // len(every)), 1, 1)[:b] @ Q[:b].mT).contiguous() for b in (24, 1000)}
+    errors = {name: compare_eigh(torch.stack(v), (1.0, 100.0)) for name, v in sites.items()}
+    errors.update({f"batch_{b}": compare_eigh(h, (1.0, 100.0)) for b, h in batches.items()})
+    h1 = sites["scan_to_map_eigh"][0].reshape(1, 6, 6).contiguous()
+    times = {"batch_1_f32": k6_times(h1), "batch_1_f64": k6_times(h1.double()),
+             "batch_24_f32": k6_times(batches[24]), "batch_1000_f32": k6_times(batches[1000])}
+    return errors, times
 
 
 def profile_launches(fn):
@@ -598,16 +781,22 @@ def run_ndt(dev):
               "vgicp_rbf_cov": (lambda: register.vgicp.align(vg, vmap, src_t, cov_rbf, mask, cfg=vcfg), 0.15)}
     for name, (solve, gate) in solves.items():
         ms, res = timed(solve, 5)
+        k6 = k6_launches()
         _, syncs = count_syncs(solve)
+        k6 = k6_launches() - k6
+        check(syncs == 0, f"{name}: {syncs} host syncs an align (K6 replaced the eigvalsh read)")
         check(bool(torch.isfinite(res.pose.R).all() and torch.isfinite(res.pose.t).all()), f"{name}: non-finite pose")
         terr = float(np.linalg.norm(res.pose.t.cpu().numpy() - t_true))
         check(terr < gate, f"{name}: terr {terr} >= {gate} m")
         fitness, _ = register.fitness_score(fit_grid, fit_map, res.pose.apply(src_t), mask, max_range=1.0)
         launches, busy, wall, top = profile_launches(solve)
         out[name] = dict(ms_per_align=ms, terr_m=terr, fitness=float(fitness), iterations=int(res.iterations),
-                         syncs_per_align=syncs, profile=dict(launches=launches, gpu_busy_ms=busy, wall_ms=wall,
-                                                             idle_share=1 - busy / wall, top_device_ms=top))
-    return out
+                         syncs_per_align=syncs, k6_launches_per_align=k6,
+                         profile=dict(launches=launches, gpu_busy_ms=busy, wall_ms=wall, idle_share=1 - busy / wall,
+                                      top_device_ms=top))
+    check(out["p2d_plain"]["k6_launches_per_align"] == 1 and out["d2d_baked"]["k6_launches_per_align"] == 1,
+          "NDT aligns: not one K6 launch an align")
+    return out, capture_eigh_inputs(solves["p2d_baked"][0])
 
 
 SLAM_KF_DT = 0.5           # pre-populated keyframe spacing in time [s] (bench.py:711)
@@ -808,9 +997,9 @@ def run_slam_shape(cfg, dev, shape, n_pre, n_frames, world, profiled_per_class=2
     syncs = []
 
     def counted_step(st, f):
-        r0 = slam.slam_step.host_reads
+        r0, k0 = slam.slam_step.host_reads, k6_launches()
         out, n = count_syncs(lambda: slam.slam_step(cfg, st, *f))
-        syncs.append((n, slam.slam_step.host_reads - r0))
+        syncs.append((n, slam.slam_step.host_reads - r0, k6_launches() - k0))
         return out
 
     _, outs_s = replay(counted_step)
@@ -835,11 +1024,12 @@ def run_slam_shape(cfg, dev, shape, n_pre, n_frames, world, profiled_per_class=2
             gpu_busy_ms_per_frame=busy, idle_share=1 - busy / float(np.mean(ms)),
             top_device_ms=sorted(([n_, t] for n_, t in top.items()), key=lambda e: -e[1])[:3],
             host_syncs_per_frame=float(np.mean([syncs[k][0] for k in sel_s])) if sel_s else None,
-            step_reads_per_frame=float(np.mean([syncs[k][1] for k in sel_s])) if sel_s else None)
-    for c, v in per_class.items():   # no read besides the step's own, 5 eigh and an NDT eigvalsh
-        if v["host_syncs_per_frame"] is not None:
-            check(v["host_syncs_per_frame"] <= v["step_reads_per_frame"] + 6,
-                  f"SLAM {shape} {c} frames: {v['host_syncs_per_frame']} syncs for {v['step_reads_per_frame']} reads")
+            step_reads_per_frame=float(np.mean([syncs[k][1] for k in sel_s])) if sel_s else None,
+            k6_launches_per_frame=float(np.mean([syncs[k][2] for k in sel_s])) if sel_s else None)
+    # no read besides the step's own: scan-to-map's and NDT's eigendecompositions are K6
+    bad = [(k, n, r) for k, (n, r, _) in enumerate(syncs) if n != r]
+    check(not bad, f"SLAM {shape}: frames (index, syncs, counted reads) with syncs other than their reads: {bad}")
+    check(all(k6 >= 1 for _, _, k6 in syncs), f"SLAM {shape}: a frame never launched K6")
     res["per_class"] = per_class
     # the whole pass's GPU busy, each class's per-frame busy weighted by its frame count
     busy_all = sum(v["gpu_busy_ms_per_frame"] * v["count"] for v in per_class.values())
@@ -953,14 +1143,18 @@ def run_localization(dev):
     lost = int(torch.stack([o.lost for o in outs]).sum())
     errs = np.linalg.norm(ts - gts, axis=1)
     check(np.isfinite(ts).all(), "localization: non-finite poses")
-    prof, syncs = [], []
+    prof, syncs, k6 = [], [], []
     for k in (20, 21):
         args = (outs[k - 1].pose, outs[k - 2].pose.t, frames[k])
         prof.append(profile_launches(lambda: match(*args)))
+        k0 = k6_launches()
         syncs.append(count_syncs(lambda: match(*args))[1])
+        k6.append(k6_launches() - k0)
+    check(syncs == [0, 0], f"localization LOAM: {syncs} host syncs a frame (K6 replaced the eigh reads)")
     res = dict(per_frame_fields(lat, LOC_FRAMES, wall, prof, syncs), peak_mem_gib=peak, max_err_m=float(errs.max()),
-               mean_err_m=float(errs.mean()), lost_frames=lost,
+               mean_err_m=float(errs.mean()), lost_frames=lost, k6_launches_per_frame=float(np.mean(k6)),
                fitness_max=float(torch.stack([o.fitness for o in outs]).max()))
+    eigh_inputs = capture_eigh_inputs(lambda: match(*args))
 
     # relocalization: a teleported guess (+5, +5, +2 m) is lost, the fallback
     # pose (the GPS / initialPose role) re-matches; latency of the sequence
@@ -978,7 +1172,7 @@ def run_localization(dev):
         t2.cpu().numpy() - gts[k])), reloc_latency_ms=reloc_ms)
     res["k1_k2_launches"] = [bf_knn.knn.launches, bf_knn.nearest_neighbor.launches]
     check(res["k1_k2_launches"] == [0, 0], f"localization launched K1/K2 {res['k1_k2_launches']} times")
-    return res
+    return res, eigh_inputs
 
 
 def run_localization_ndt(dev):
@@ -1035,16 +1229,19 @@ def run_localization_ndt(dev):
     ts = torch.stack([o.pose.t for o in outs]).cpu().numpy()
     errs = np.linalg.norm(ts - gts, axis=1)
     check(np.isfinite(ts).all(), "NDT localization: non-finite poses")
-    prof, syncs = [], []
+    prof, syncs, k6 = [], [], []
     for k in (8, 9):
         args = (outs[k - 1].pose, scans[k])
         prof.append(profile_launches(lambda: match(*args)))
+        k0 = k6_launches()
         syncs.append(count_syncs(lambda: match(*args))[1])
+        k6.append(k6_launches() - k0)
+    check(syncs == [0, 0], f"NDT localization: {syncs} host syncs a frame (K6 replaced the eigvalsh read)")
     k1_k2 = [bf_knn.knn.launches, bf_knn.nearest_neighbor.launches]
     check(k1_k2 == [0, 0], f"NDT localization launched K1/K2 {k1_k2} times")
     return dict(per_frame_fields(lat, LOC_NDT_FRAMES, wall, prof, syncs), points=LOC_NDT_POINTS, map_build_ms=build_ms,
                 peak_mem_gib=peak, max_err_m=float(errs.max()),
-                lost_frames=int(torch.stack([o.lost for o in outs]).sum()),
+                lost_frames=int(torch.stack([o.lost for o in outs]).sum()), k6_launches_per_frame=float(np.mean(k6)),
                 max_eigen_min=float(torch.stack([o.max_eigen for o in outs]).min()), k1_k2_launches=k1_k2)
 
 
@@ -1564,6 +1761,8 @@ def online_paths(out_dir, smi):
                              str(DEPLOY_SOAK_S)]}, timeout=600)
     res["soak_localization"] = dict(last_json(loc["soak"][1]), nvidia_smi=smi)
     sl = res["soak_localization"]
+    sl["k6_launches_per_match"] = sl["k6_launches"] / sl["matches"]
+    check(sl["k6_launches"] > 0, "the localization soak never launched K6")
     check(sl["losses"] >= 1 and sl["recoveries"] == sl["losses"] and sl["err_final_m"] < 0.10,
           f"localization soak: loss not recovered or final error >= 0.10 m: {sl}")
     return res
@@ -1596,9 +1795,12 @@ def kitti_paths(out_dir):
         app = run_apps({algo: [os.path.join(ROOT, "apps", "run_kitti_torch.py"), seq, "--algo", algo, "--out", out]},
                        timeout=600)
         done = next(ln for ln in app[algo][1].splitlines() if ln.startswith("done:"))
+        k6 = int(next(ln for ln in app[algo][1].splitlines() if ln.startswith("kernel launches: K6 ")).split()[-1])
         final, worst = kitti_errors(os.path.join(seq, "poses.txt"), out)
-        res[algo] = dict(fps=float(done.split(", ")[1].split()[0]), final_err_m=final, max_err_m=worst)
+        res[algo] = dict(fps=float(done.split(", ")[1].split()[0]), final_err_m=final, max_err_m=worst,
+                         k6_launches_per_frame=k6 / DEPLOY_KITTI_FRAMES)
         check(worst < KITTI_MAX_ERR_M[algo], f"KITTI {algo}: largest error {worst} m (gate {KITTI_MAX_ERR_M[algo]} m)")
+        check(algo != "ndt" or k6 > 0, "KITTI ndt: the app never launched K6")
     return res
 
 
@@ -1942,7 +2144,8 @@ def main():
     # ---- 1. device and build ----
     t0 = time.perf_counter()
     lib = _cuda.library()
-    ptxas = [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     phase(1, "device+build", device=name, nvidia_smi=smi, build_s=round(time.perf_counter() - t0, 2),
           nvcc_s=round(lib.build_seconds, 2), ptxas=ptxas)
 
@@ -1992,9 +2195,11 @@ def main():
     scan_fields = {f"k{k}": compare_knn(bf_knn, scan, pts, k) for k in (5, 20)}
     phase(4, "K1 vs plain (6144 queries over the map)", n=int(scan.shape[1]), m=int(pts.shape[1]), **scan_fields)
     ragged_q, ragged_db = frames[11].pts[:, :3001].contiguous(), cloud
-    sweep = sweep_k(bf_knn, ragged_q, ragged_db, (2, 3, 4, 7, 9, 16, 21, 32))
-    phase(4, "K1 sweep of k (3001 x 20000)", max_abs_err=sweep, refused_above=bf_knn.MAX_K,
-          plans={k: plan_fields(bf_knn, ragged_q, ragged_db, k) for k in sweep})
+    sweep = sweep_k(bf_knn, ragged_q, ragged_db, (2, 3, 4, 7, 9, 16, 21, 32, 33, 40, 64, 100))
+    phase(4, "K1 sweep of k (3001 x 20000; above MAX_K in rounds)", max_abs_err=sweep, list_length=bf_knn.MAX_K,
+          plans={k: plan_fields(bf_knn, ragged_q, ragged_db, k) for k in sweep},
+          tie_share_at_round_edge=exact_rounds(bf_knn, (33, 40, 64, 100)))
+    phase(4, "K1 rounds on the map (k=40, 64)", **{f"k{k}": round_times(bf_knn, pts, pts, k) for k in (40, 64)})
     tie_splits = check_split_ties(bf_knn, cloud, 8)
     phase(4, "ties across splits (K1 k=8, K2)", S_k1=tie_splits[0], S_k2=tie_splits[1], copies=300)
 
@@ -2043,8 +2248,11 @@ def main():
     table = [" ".join(ln.split()) for ln in bench.stdout.split("\n\n")[-1].strip().splitlines()]
     phase(7, "align bench", rc=bench.returncode, table=" | ".join(table))
 
-    # ---- 8. NDT, D2D and RBF covariances on the same pair ----
-    phase(8, "NDT on the align pair", **run_ndt(dev))
+    # ---- 8. NDT, D2D and RBF covariances on the same pair (K6 counted) ----
+    reset_k6()
+    ndt_fields, ndt_eigh_inputs = run_ndt(dev)
+    k6_main = k6_launches()
+    phase(8, "NDT on the align pair", k6_launches=k6_main, **ndt_fields)
 
     # ---- 9. LIO-SAM SLAM at bench.py config 6's full shapes ----
     from pointcloud_slam_tpu_torch.io import synthetic
@@ -2053,14 +2261,18 @@ def main():
     cfg512 = slam_config(512)
     slam_res = {}
     for shape in ("fresh", "revisit"):
+        reset_k6()
         slam_res[shape], _ = run_slam_shape(cfg512, dev, shape, 480, 32, world)
-        phase(9, f"SLAM {shape} (KF 512, 480 pre-populated, 32 frames)", **slam_res[shape])
+        k6_main += k6_launches()
+        phase(9, f"SLAM {shape} (KF 512, 480 pre-populated, 32 frames)", k6_launches=k6_launches(), **slam_res[shape])
     rv, fr = slam_res["revisit"], slam_res["fresh"]
     check(rv["loops"] >= 1 and rv["final_err_m"] < 0.05,
           f"SLAM revisit: {rv['loops']} loops, final error {rv['final_err_m']} m (gates: >= 1, < 0.05 m)")
     check(abs(fr["drift_m_per_m"]) <= 0.01, f"SLAM fresh: drift {fr['drift_m_per_m']} m/m (gate 0.01, bench.py:867)")
+    reset_k6()
     big, _ = run_slam_shape(slam_config(4096), dev, "revisit", 4064, 8, world)
-    phase(9, "SLAM revisit (KF 4096, 4064 pre-populated, 8 frames)", **big)
+    k6_main += k6_launches()
+    phase(9, "SLAM revisit (KF 4096, 4064 pre-populated, 8 frames)", k6_launches=k6_launches(), **big)
     # its keyframe artifacts are phase 12's input
     app = subprocess.run([sys.executable, os.path.join(ROOT, "apps", "run_slam_offline_torch.py"), "--synthetic", "40",
                           "--device", "cuda", "--save_artifacts",
@@ -2070,14 +2282,18 @@ def main():
     phase(9, "SLAM app", rc=app.returncode, out=app.stdout.strip().splitlines()[0])
 
     # ---- 10. prior-map localization at bench.py config 8's full shape ----
-    loam = run_localization(dev)
-    phase(10, "localization LOAM (config 8: 64 frames, 512 + 2048 points)", **loam)
+    reset_k6()
+    loam, loam_eigh_inputs = run_localization(dev)
+    k6_main += k6_launches()
+    phase(10, "localization LOAM (config 8: 64 frames, 512 + 2048 points)", k6_launches=k6_launches(), **loam)
     check(loam["max_err_m"] < 0.10 and loam["lost_frames"] == 0,
           f"localization: max error {loam['max_err_m']} m, {loam['lost_frames']} lost (gates: < 0.10 m, 0)")
     check(loam["reloc_triggered"] and loam["reloc_recovered"] and loam["reloc_err_m"] < 0.05,
           f"relocalization: {loam['reloc_triggered']}, {loam['reloc_recovered']}, {loam['reloc_err_m']} m")
+    reset_k6()
     ndt_loc = run_localization_ndt(dev)
-    phase(10, "localization NDT (8192 points, 60k-point room, 16 frames)", **ndt_loc)
+    k6_main += k6_launches()
+    phase(10, "localization NDT (8192 points, 60k-point room, 16 frames)", k6_launches=k6_launches(), **ndt_loc)
     check(ndt_loc["max_err_m"] < 0.10 and ndt_loc["lost_frames"] == 0,
           f"NDT localization: max error {ndt_loc['max_err_m']} m, {ndt_loc['lost_frames']} lost (gates: < 0.10 m, 0)")
     loc_app = os.path.join(ROOT, "apps", "run_localization_torch.py")
@@ -2086,6 +2302,15 @@ def main():
     lost = {m: lost_count(so) for m, (_, so, _) in apps.items()}
     phase(10, "localization app", lost=lost, out={m: so.strip().splitlines()[0] for m, (_, so, _) in apps.items()})
     check(lost == {"ndt": 0, "loam": 0}, f"localization app lost frames: {lost}")
+    check(k6_main > 0, "the paths of phases 8-10 never launched K6")
+
+    # ---- 10. K6 against its plain version at the call sites' inputs, then its times ----
+    k6_cmp, k6_t = run_k6_check(dev, loam_eigh_inputs, ndt_eigh_inputs)
+    # the kernels line's error: on spectra scaled to max|lambda| = 1 (the H of an
+    # NDT align reach 1e8, where a float32 ulp alone is ~10)
+    k6_err = max(v["f32"]["eig_rel_err"] for v in k6_cmp.values())
+    phase(10, "K6 vs plain at the call sites (scan-to-map, NDT; batches 24 and 1,000), and its times",
+          nvidia_smi=smi, errors=k6_cmp, times=k6_t, launches=k6_main)
 
     # ---- 11. recorded data: dataset + bag, three replays, SLAM and localization on them ----
     phase(11, "recorded data", **run_recorded(dev, str(_cuda.BUILD_DIR)))
@@ -2137,7 +2362,13 @@ def main():
         {"name": "nearest_neighbor", "route": "cuda", "source": "pointcloud_slam_tpu_torch/csrc/bf_knn.cu",
          "replaces": "pointcloud_slam_tpu/ops/pallas/bf_knn.py:25", "launches": launches["nearest_neighbor"],
          "max_abs_err": nn_err, "ms": nn_ms, "plain_ms": nn_plain_ms, "bound_ms": nn_bound,
-         "bound_by": nn_bound_by, "library_ms": None}]}))
+         "bound_by": nn_bound_by, "library_ms": None},
+        {"name": "small_eigh", "route": "cuda", "source": "pointcloud_slam_tpu_torch/csrc/small_eigh.cu",
+         "replaces": "pointcloud_slam_tpu/register/solver.py:107 (jnp.linalg.eigh; not a TPU kernel: it ends "
+                     "torch.linalg.eigh's host read)", "launches": k6_main, "max_abs_err": k6_err,
+         "ms": k6_t["batch_1_f32"]["ms"], "plain_ms": k6_t["batch_1_f32"]["plain_ms"],
+         "bound_ms": k6_t["batch_1_f32"]["bound_ms"], "bound_by": k6_t["batch_1_f32"]["bound_by"],
+         "library_ms": k6_t["batch_1_f32"]["library_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -52,6 +52,19 @@
 //
 // K is a template parameter; a k without an instance of its own runs the next
 // larger one and writes its first k rows (the wrapper names the instance).
+//
+// Rounds: a k longer than the longest list (32) runs in rounds of at most 32
+// rows, each through the instance for its row count (ops/bf_knn.py::plan).
+// Round r writes rows 32r ..; from round 1 on, the search admits a point only
+// if (d2, idx) comes after the floor (d2_f, idx_f) in the lexicographic
+// order, the query's last row of the round before, read here on the device.
+// The test is split so that the common case stays cheap: a point nearer than
+// d2_f is given an infinite distance as it is computed (one compare and one
+// select a pair), so it passes no vote; the few at exactly d2_f pass the
+// vote and are held to idx > idx_f where candidates are taken. The order of
+// the whole list is (d2, idx), so the rounds are exact and keep the tie
+// rule; each costs one more search and merge pass. Round 0 has no floor and
+// runs the code of a single call (kFloor = false).
 // Ragged N and M are masked here. Points the caller moved far away
 // (pad_cloud's 1e17 convention) are ordinary, far, candidates.
 //
@@ -124,10 +137,11 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, in
 // common case costs one FMNMX a pair and one vote a step. When any lane of
 // the warp has a passing minimum, the warp looks again, point by point in
 // index order, and queues (K > 1) or takes (K = 1) what passes.
-template <int K>
+template <int K, bool kFloor>
 __global__ void __launch_bounds__(kThreads)
 search_kernel(const float* __restrict__ q, int n, const float* __restrict__ db, int m, int chunk, int k_out,
-              float* __restrict__ out_d2, int* __restrict__ out_idx) {
+              float* __restrict__ out_d2, int* __restrict__ out_idx, const float* __restrict__ floor_d2,
+              const int* __restrict__ floor_idx) {
   constexpr int U = kStep;
   constexpr int kQueue = U + 4;   // queue slots per query; drained when a step could overflow them
   constexpr int kSlots = K > 1 ? kQueue * kThreads : 1;
@@ -154,6 +168,9 @@ search_kernel(const float* __restrict__ q, int n, const float* __restrict__ db, 
   const float qx = live ? q[i] : 0.f;
   const float qy = live ? q[n + i] : 0.f;
   const float qz = live ? q[2 * n + i] : 0.f;
+  // the floor of a round after the first: the query's last row of the round before
+  const float fd = kFloor && live ? floor_d2[i] : 0.f;
+  const int fi = kFloor && live ? floor_idx[i] : 0;
   // a query past the end never admits a candidate, so it never fills a queue
 #pragma unroll
   for (int s = 0; s < K; ++s) {
@@ -194,7 +211,9 @@ search_kernel(const float* __restrict__ q, int n, const float* __restrict__ db, 
       const float dx = qx - px[u];
       const float dy = qy - py[u];
       const float dz = qz - pz[u];
-      t[u] = d[u] = fmaf(dz, dz, fmaf(dy, dy, dx * dx));
+      d[u] = fmaf(dz, dz, fmaf(dy, dy, dx * dx));
+      if constexpr (kFloor) d[u] = d[u] >= fd ? d[u] : __int_as_float(0x7f800000);   // +inf: an earlier round's
+      t[u] = d[u];
     }
 #pragma unroll
     for (int w = U / 2; w > 0; w /= 2) {
@@ -206,7 +225,8 @@ search_kernel(const float* __restrict__ q, int n, const float* __restrict__ db, 
     COUNT_WARP(1, 1);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (d[u] < thr) {
+      // behind a floor, a point at exactly its distance comes after it only with a higher index
+      if (d[u] < thr && (!kFloor || d[u] != fd || c0 + u > fi)) {
         if constexpr (K == 1) {
           thr = bd[0] = d[u];
           bi[0] = c0 + u;
@@ -346,6 +366,8 @@ struct Args {
   int* idx;
   float* part_d2;   // (splits, k, n) scratch
   int* part_idx;
+  const float* floor_d2;   // (n,) the round's floor, or null (round 0)
+  const int* floor_idx;
   cudaStream_t stream;
 };
 
@@ -353,7 +375,13 @@ template <int K>
 cudaError_t launch(const Args& a) {
   const int chunk = (a.m + a.splits - 1) / a.splits;
   const dim3 grid((a.n + 31) / 32, a.splits / kWarps);
-  search_kernel<K><<<grid, kThreads, 0, a.stream>>>(a.q, a.n, a.db, a.m, chunk, a.k, a.part_d2, a.part_idx);
+  if (a.floor_d2 != nullptr) {
+    search_kernel<K, true><<<grid, kThreads, 0, a.stream>>>(a.q, a.n, a.db, a.m, chunk, a.k, a.part_d2, a.part_idx,
+                                                             a.floor_d2, a.floor_idx);
+  } else {
+    search_kernel<K, false><<<grid, kThreads, 0, a.stream>>>(a.q, a.n, a.db, a.m, chunk, a.k, a.part_d2,
+                                                              a.part_idx, nullptr, nullptr);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   merge_kernel<<<(a.n + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, a.stream>>>(
@@ -363,7 +391,8 @@ cudaError_t launch(const Args& a) {
 
 cudaError_t dispatch(int instance, const Args& a) {
   if (a.n <= 0) return cudaSuccess;
-  if (a.k < 1 || a.k > instance || a.splits < kWarps || a.splits > kMaxSplits || a.splits % kWarps) {
+  if (a.k < 1 || a.k > instance || a.splits < kWarps || a.splits > kMaxSplits || a.splits % kWarps ||
+      (a.floor_d2 == nullptr) != (a.floor_idx == nullptr)) {
     return cudaErrorInvalidValue;
   }
   switch (instance) {
@@ -386,13 +415,16 @@ cudaError_t dispatch(int instance, const Args& a) {
 // Outputs d2 (k, n) f32 ascending and idx (k, n) int32; -1 / 3e38 where the
 // database holds fewer than k points. `instance` >= k is the list length the
 // search runs with, `splits` the number of database ranges (4, 8, 12 or 16);
-// part_d2 / part_idx are (splits, k, n) scratch. Returns a cudaError_t (0 =
-// both passes launched); cudaErrorInvalidValue for an (instance, splits) that
-// was not built.
+// part_d2 / part_idx are (splits, k, n) scratch. A round after the first
+// passes the previous round's last row as floor_d2 / floor_idx ((n,) each;
+// both null in round 0) and d2 / idx at its own first row. Returns a
+// cudaError_t (0 = both passes launched); cudaErrorInvalidValue for an
+// (instance, splits) that was not built.
 extern "C" int pcs_bf_knn(const float* q, int n, const float* db, int m, int k, int instance, int splits, float* d2,
-                          int* idx, float* part_d2, int* part_idx, void* stream) {
-  return static_cast<int>(
-      dispatch(instance, Args{q, n, db, m, k, splits, d2, idx, part_d2, part_idx, static_cast<cudaStream_t>(stream)}));
+                          int* idx, float* part_d2, int* part_idx, const float* floor_d2, const int* floor_idx,
+                          void* stream) {
+  return static_cast<int>(dispatch(instance, Args{q, n, db, m, k, splits, d2, idx, part_d2, part_idx, floor_d2,
+                                                  floor_idx, static_cast<cudaStream_t>(stream)}));
 }
 
 // Exact 1-NN (K2): queries (3, n), database (3, m) as above. Outputs d2 (n,)
@@ -402,7 +434,8 @@ extern "C" int pcs_bf_knn(const float* q, int n, const float* db, int m, int k, 
 extern "C" int pcs_bf_nn(const float* q, int n, const float* db, int m, int splits, float* d2, int* idx,
                          float* part_d2, int* part_idx, void* stream) {
   return static_cast<int>(
-      dispatch(1, Args{q, n, db, m, 1, splits, d2, idx, part_d2, part_idx, static_cast<cudaStream_t>(stream)}));
+      dispatch(1, Args{q, n, db, m, 1, splits, d2, idx, part_d2, part_idx, nullptr, nullptr,
+                       static_cast<cudaStream_t>(stream)}));
 }
 
 #ifdef PCS_COUNTERS

@@ -13,10 +13,10 @@ Both feature families become plane-style residual rows [pw x n, n] (for
 lines, n is the in-plane perpendicular to the fitted line), one (6, N)
 Jacobian block and H = J J^T. The search schedule is static (warm-up rounds
 of one iteration, then rounds of `search_every`), with the degeneracy
-projector recomputed once per round. Its `torch.linalg.eigh` reads its info
-on the host (one read per round, `warmup_searches + ceil((max_iterations -
-warmup_searches) / search_every)` = 4 at the defaults, plus the final
-`eigvalsh`: 5 reads a call); nothing else reads back. The JAX package's
+projector recomputed once per round (`warmup_searches + ceil((max_iterations
+- warmup_searches) / search_every)` = 4 eigendecompositions at the defaults,
+plus the final eigenvalues: 5 launches of kernel K6 a call on the card,
+`ops.small_eigh`); nothing reads back to the host. The JAX package's
 `optimization_barrier` guards (a libtpu miscompile workaround) are not
 ported.
 """
@@ -30,6 +30,7 @@ import torch
 
 from ... import ops
 from ...geom import fit, se3
+from ...ops import small_eigh
 from ...register import solver
 
 
@@ -165,5 +166,5 @@ def scan_to_map(
             return (z, z, z, z, z, torch.zeros(n, dtype=torch.bool, device=dev))
         cache = (empty(corner_pts.shape[1], corner_pts.device), empty(surf_pts.shape[1], surf_pts.device))
     H, b, nc, ns = linearize(pose, cache)
-    eigs = torch.linalg.eigvalsh(H)
+    eigs = small_eigh.eigvalsh(H)
     return Scan2MapResult(pose, done, iters, nc, ns, H, eigs[0] < cfg.degeneracy_eig)

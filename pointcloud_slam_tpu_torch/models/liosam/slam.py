@@ -20,10 +20,10 @@ small tensor. A plain frame reads once (keyframe flag and the frame's
 counters, after scan-to-map); a detection adds one read (both channels'
 candidates), each verification one (its verdict), a GPS fix one, a deferred
 sweep one (whether to rebuild the maps). `slam_step.host_reads` counts
-them. Besides these, every `torch.linalg.eigh` / `eigvalsh` reads its info
-on the host: 5 per scan-to-map call, 1 per NDT verification. The
-per-iteration schedules (scan-to-map rounds, NDT/ICP rounds, PCG) stay
-fixed and masked, as in the JAX package, and read nothing.
+them, and nothing else reads back: scan-to-map's and NDT's
+eigendecompositions are kernel K6 (`ops.small_eigh`) on the card, with no
+host read. The per-iteration schedules (scan-to-map rounds, NDT/ICP rounds,
+PCG) stay fixed and masked, as in the JAX package, and read nothing.
 
 State is functional: a step returns new tensors and never writes into the
 state it was given, so a caller may restart from an earlier state.

@@ -11,9 +11,9 @@ Reference: `src/jueying_slam/src/localization.cpp` / `new_localization.cpp`
   - the status channel: fitness scores exported like odometry
     covariance[0:2] (localization.cpp:1243-1244).
 
-Every field of a result stays on the device: `localize_loam` reads back
-only what `scan_to_map` reads (its 5 `eigh` infos), `localize_ndt` only
-NDT's final `eigvalsh`, and `relocalize` reads nothing.
+Every field of a result stays on the device: `localize_loam`,
+`localize_ndt` and `relocalize` read nothing back to the host (scan-to-map's
+and NDT's eigendecompositions are kernel K6, `ops.small_eigh`, on the card).
 """
 
 from __future__ import annotations

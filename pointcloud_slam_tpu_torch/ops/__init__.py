@@ -1,7 +1,8 @@
 """Core data-structure ops: voxel-hash map, Gaussian voxel map,
-downsampling, the PHC sub-voxel merge, exact k-NN and 1-NN (kernels K1, K2)."""
+downsampling, the PHC sub-voxel merge, exact k-NN and 1-NN (kernels K1, K2),
+small symmetric eigendecompositions (kernel K6)."""
 
-from . import bf_knn, gaussian_grid, phc
+from . import bf_knn, gaussian_grid, phc, small_eigh
 from .downsample import compact, random_decimate, voxel_downsample, voxel_downsample_compact
 from .phc import hilbert_coords, hilbert_index, phc_merge, phc_sort
 from .voxel_grid import (
@@ -11,6 +12,7 @@ from .voxel_grid import (
 
 __all__ = [
     "bf_knn",
+    "small_eigh",
     "gaussian_grid",
     "GridConfig",
     "VoxelHashMap",

@@ -15,6 +15,12 @@ warps of a block take one each); each range's sorted top-k goes to an
 (S, k, N) scratch and a merge pass picks the k least by (d2, idx).
 `knn_plain_split` is the plain mirror of that split and merge.
 
+A k longer than the longest list (`MAX_K`) runs in rounds of at most
+`MAX_K` rows (`plan` gives the layout): round r writes rows MAX_K r .., and
+from round 1 on the search admits a point only after the floor, the query's
+last row of the round before, in the (d2, idx) order. `knn_plain_rounds` is
+the plain mirror of the rounds.
+
 Differences from the TPU kernel, both deliberate: d2 is the direct
 difference (q-p).(q-p) (the TPU kernel expands |q|^2+|p|^2-2q.p and packs
 the column index into 9 low mantissa bits), and N, M need not be tile
@@ -28,7 +34,7 @@ import torch
 
 from . import _cuda
 
-MAX_K = 32  # the longest list the CUDA kernel keeps (the plain version has no limit)
+MAX_K = 32  # the longest list the CUDA kernel keeps in registers: a longer k runs in rounds of MAX_K rows
 _INSTANCES = (1, 2, 4, 8, 12, 16, 20, 24, 32)  # list lengths csrc/bf_knn.cu is instantiated for
 _WARPS = 4              # kWarps of csrc/bf_knn.cu: ranges a block searches, one a warp
 _MAX_SPLITS = 16        # kMaxSplits of csrc/bf_knn.cu
@@ -62,30 +68,67 @@ def knn_plain(queries: torch.Tensor, database: torch.Tensor, k: int = 8):
     d2_out = torch.full((k, N), _INF, dtype=torch.float32, device=queries.device)
     idx_out = torch.full((k, N), -1, dtype=torch.int32, device=queries.device)
     for s in range(0, N, _CHUNK):
-        q = queries[:, s:s + _CHUNK]
-        d2 = ((q[0][:, None] - database[0][None, :]) ** 2
-              + (q[1][:, None] - database[1][None, :]) ** 2
-              + (q[2][:, None] - database[2][None, :]) ** 2)           # (n, M)
-        vals, idx = torch.topk(d2, kk, dim=1, largest=False, sorted=True)
-        # topk keeps any of the points that tie at the k-th distance: in the
-        # rows that have more such points than places, take every closer
-        # point and the lowest indices among those at it
-        kth = vals[:, -1:]
-        tied = ((d2 <= kth).sum(dim=1) > kk).nonzero()[:, 0]
-        if tied.numel():
-            sub, kth = d2[tied], kth[tied]
-            closer, at = sub < kth, sub == kth
-            room = kk - closer.sum(dim=1, keepdim=True)
-            keep = closer | (at & (torch.cumsum(at, dim=1, dtype=torch.int32) <= room))
-            cols = torch.arange(M, device=d2.device).expand_as(sub)
-            idx[tied] = torch.topk(torch.where(keep, cols, M), kk, dim=1, largest=False).values
-            vals[tied] = torch.gather(sub, 1, idx[tied])
-        by_idx = torch.argsort(idx, dim=1, stable=True)                # order by (d2, idx): two stable sorts
-        vals, idx = torch.gather(vals, 1, by_idx), torch.gather(idx, 1, by_idx)
-        by_d2 = torch.argsort(vals, dim=1, stable=True)
-        vals, idx = torch.gather(vals, 1, by_d2), torch.gather(idx, 1, by_d2)
+        vals, idx = _least(_plain_d2(queries[:, s:s + _CHUNK], database), kk)
         d2_out[:kk, s:s + _CHUNK] = vals.T
         idx_out[:kk, s:s + _CHUNK] = idx.T.to(torch.int32)
+    return d2_out, idx_out
+
+
+def _plain_d2(q: torch.Tensor, database: torch.Tensor) -> torch.Tensor:
+    """(n, M) direct-difference squared distances of a chunk of queries."""
+    return ((q[0][:, None] - database[0][None, :]) ** 2
+            + (q[1][:, None] - database[1][None, :]) ** 2
+            + (q[2][:, None] - database[2][None, :]) ** 2)
+
+
+def _least(d2: torch.Tensor, kk: int):
+    """The kk least entries of each row of d2 (n, M) by (d2, column), in that
+    order: (values (n, kk), columns (n, kk))."""
+    M = d2.shape[1]
+    vals, idx = torch.topk(d2, kk, dim=1, largest=False, sorted=True)
+    # topk keeps any of the points that tie at the k-th distance: in the
+    # rows that have more such points than places, take every closer
+    # point and the lowest indices among those at it
+    kth = vals[:, -1:]
+    tied = ((d2 <= kth).sum(dim=1) > kk).nonzero()[:, 0]
+    if tied.numel():
+        sub, kth = d2[tied], kth[tied]
+        closer, at = sub < kth, sub == kth
+        room = kk - closer.sum(dim=1, keepdim=True)
+        keep = closer | (at & (torch.cumsum(at, dim=1, dtype=torch.int32) <= room))
+        cols = torch.arange(M, device=d2.device).expand_as(sub)
+        idx[tied] = torch.topk(torch.where(keep, cols, M), kk, dim=1, largest=False).values
+        vals[tied] = torch.gather(sub, 1, idx[tied])
+    by_idx = torch.argsort(idx, dim=1, stable=True)                # order by (d2, idx): two stable sorts
+    vals, idx = torch.gather(vals, 1, by_idx), torch.gather(idx, 1, by_idx)
+    by_d2 = torch.argsort(vals, dim=1, stable=True)
+    return torch.gather(vals, 1, by_d2), torch.gather(idx, 1, by_d2)
+
+
+def knn_plain_rounds(queries: torch.Tensor, database: torch.Tensor, k: int):
+    """Plain PyTorch mirror of the kernel's rounds (`plan` for k > MAX_K):
+    round r takes the next MAX_K (or fewer) points of each query after the
+    floor, its last point of the round before, in the (d2, idx) order; a
+    point at or before the floor counts as infinitely far, and a row with
+    no point left is -1 / 3e38. Equals `knn_plain` bit for bit."""
+    N, M = queries.shape[1], database.shape[1]
+    d2_out = torch.full((k, N), _INF, dtype=torch.float32, device=queries.device)
+    idx_out = torch.full((k, N), -1, dtype=torch.int32, device=queries.device)
+    cols = torch.arange(M, device=queries.device)
+    for s in range(0, N, _CHUNK):
+        d2 = _plain_d2(queries[:, s:s + _CHUNK], database)
+        for row0 in range(0, k, MAX_K):
+            rows = min(MAX_K, k - row0)
+            sub = d2
+            if row0:
+                fd, fi = d2_out[row0 - 1, s:s + _CHUNK, None], idx_out[row0 - 1, s:s + _CHUNK, None]
+                after = (d2 > fd) | ((d2 == fd) & (cols[None, :] > fi))
+                sub = torch.where(after, d2, float("inf"))
+            kk = min(rows, M)
+            vals, idx = _least(sub, kk)
+            gone = torch.isinf(vals)
+            d2_out[row0:row0 + kk, s:s + _CHUNK] = torch.where(gone, _INF, vals).T
+            idx_out[row0:row0 + kk, s:s + _CHUNK] = torch.where(gone, -1, idx).T.to(torch.int32)
     return d2_out, idx_out
 
 
@@ -110,17 +153,23 @@ def knn_plain_split(queries: torch.Tensor, database: torch.Tensor, k: int, split
 
 
 def plan(n: int, m: int, k: int):
-    """What the CUDA kernel runs with for n queries over m points: (instance,
-    splits) — the list length of the instance (k rounded up) and the number
-    of database ranges searched apart and merged. A pure function of the
-    shapes, so a call's result does not depend on the card's state.
+    """What the CUDA kernel runs with for n queries over m points: for
+    1 <= k <= MAX_K (instance, splits) — the list length of the instance (k
+    rounded up) and the number of database ranges searched apart and merged;
+    for k > MAX_K the round layout, a tuple of (row0, rows, instance,
+    splits), one a round of rows = min(MAX_K, k - row0) rows. A pure
+    function of the shapes, so a call's result does not depend on the card's
+    state. k < 1 raises ValueError.
 
     A block's four warps always take four ranges (they prune each other, so
     this split costs little); more blocks along the database, up to 16
     ranges in all, only while the card has fewer than 16 warps per SM and a
     range keeps 256 points."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the CUDA kernel takes 1 <= k <= {MAX_K}, got k={k}")
+    if k < 1:
+        raise ValueError(f"the CUDA kernel takes k >= 1 (rounds of at most MAX_K = {MAX_K} rows), got k={k}")
+    if k > MAX_K:
+        return tuple((row0, min(MAX_K, k - row0), *plan(n, m, min(MAX_K, k - row0)))
+                     for row0 in range(0, k, MAX_K))
     instance = next(i for i in _INSTANCES if i >= k)
     query_blocks = max(1, -(-n // 32))
     along = min(_TARGET_WARPS // (query_blocks * _WARPS), _MAX_SPLITS // _WARPS, m // (_WARPS * _MIN_SPLIT_POINTS))
@@ -150,30 +199,52 @@ def _device_of(queries: torch.Tensor, database: torch.Tensor) -> str:
 def run_plan(queries: torch.Tensor, database: torch.Tensor, k: int, instance: int, splits: int, flat: bool = False):
     """Both passes of the kernel at a given plan, on the current stream:
     outputs (k, N), or (N,) through K2's entry point when `flat`. `knn` and
-    `nearest_neighbor` call it with `plan`'s choice; the card tests and the
-    timing tool also with other splits. Raises when either launch is refused."""
-    _check_cuda_inputs(queries, database, splits * k)
+    `nearest_neighbor` call it with `plan`'s choice for k <= MAX_K; the card
+    tests and the timing tool also with other splits. Raises when either
+    launch is refused."""
     N, M = queries.shape[1], database.shape[1]
     dev = queries.device
     shape = (N,) if flat else (k, N)
     d2 = torch.empty(shape, dtype=torch.float32, device=dev)
     idx = torch.empty(shape, dtype=torch.int32, device=dev)
-    # scratch of the partial lists: (splits, k, N) of d2, then of idx, in one allocation
-    part = torch.empty((2, splits * k * N), dtype=torch.int32, device=dev)
-    part_d2 = part.data_ptr()
-    part_idx = part_d2 + 4 * splits * k * N
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        lib = _cuda.library()
-        if flat:
-            err = lib.pcs_bf_nn(queries.data_ptr(), N, database.data_ptr(), M, splits, d2.data_ptr(),
-                                idx.data_ptr(), part_d2, part_idx, stream)
-        else:
-            err = lib.pcs_bf_knn(queries.data_ptr(), N, database.data_ptr(), M, k, instance, splits,
-                                 d2.data_ptr(), idx.data_ptr(), part_d2, part_idx, stream)
-    if err != 0:
-        raise RuntimeError(f"bf_knn kernel launch failed (k={k}, instance={instance}, splits={splits}): cudaError {err}")
+    if flat:
+        _check_cuda_inputs(queries, database, splits)
+        part = torch.empty((2, splits * N), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = _cuda.library().pcs_bf_nn(queries.data_ptr(), N, database.data_ptr(), M, splits, d2.data_ptr(),
+                                            idx.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+                                            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"bf_nn kernel launch failed (splits={splits}): cudaError {err}")
+    else:
+        search_round(queries, database, d2, idx, 0, k, instance, splits)
     return d2, idx
+
+
+def search_round(queries: torch.Tensor, database: torch.Tensor, d2: torch.Tensor, idx: torch.Tensor,
+                 row0: int, rows: int, instance: int, splits: int):
+    """One round of the kernel on the current stream: both passes write rows
+    row0 .. row0 + rows - 1 of the (k, N) outputs d2 / idx; a round after
+    the first (row0 > 0) reads row row0 - 1 as its floor. Rerunning a round
+    on outputs whose earlier rows are final rewrites the same values (the
+    timing of single rounds relies on it). Raises when a launch is refused."""
+    _check_cuda_inputs(queries, database, splits * rows)
+    N, M = queries.shape[1], database.shape[1]
+    if d2.shape != idx.shape or d2.dim() != 2 or d2.shape[1] != N or row0 + rows > d2.shape[0] \
+            or d2.dtype != torch.float32 or idx.dtype != torch.int32 or not (d2.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("d2 / idx must be contiguous (k, N) float32 / int32 outputs holding the round's rows")
+    # scratch of the partial lists: (splits, rows, N) of d2, then of idx, in one allocation
+    part = torch.empty((2, splits * rows * N), dtype=torch.int32, device=queries.device)
+    floor_d2 = d2[row0 - 1].data_ptr() if row0 else None
+    floor_idx = idx[row0 - 1].data_ptr() if row0 else None
+    with torch.cuda.device(queries.device):
+        err = _cuda.library().pcs_bf_knn(queries.data_ptr(), N, database.data_ptr(), M, rows, instance, splits,
+                                         d2[row0].data_ptr(), idx[row0].data_ptr(), part[0].data_ptr(),
+                                         part[1].data_ptr(), floor_d2, floor_idx,
+                                         torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bf_knn kernel launch failed (rows {row0}..{row0 + rows - 1}, instance={instance}, "
+                           f"splits={splits}): cudaError {err}")
 
 
 def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 8, bq: int = 256, bm: int = 512):
@@ -181,15 +252,23 @@ def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 8, bq: int = 256
     (d2 (k, N) ascending, idx (k, N) int32), the lower index first among
     equal distances; -1 / 3e38 where the database holds fewer than k points.
 
-    On CUDA tensors any 1 <= k <= MAX_K runs the kernel (see `plan`) and a
-    larger k raises ValueError: the limit is the card's, where the lists
-    live in registers. On CPU tensors the plain version takes any k.
+    On CUDA tensors any k >= 1 runs the kernel (see `plan`): a k up to
+    MAX_K in one call of both passes, a longer one in rounds of MAX_K rows,
+    since the card keeps a list in registers. On CPU tensors the plain
+    version takes any k.
     `bq`/`bm` are the TPU kernel's tile sizes, accepted for signature parity;
     the CUDA kernel masks ragged edges itself and takes any N, M.
     Counts its CUDA launches in `knn.launches`."""
     if _device_of(queries, database) == "cpu":
         return knn_plain(queries, database, k)
-    d2, idx = run_plan(queries, database, k, *plan(queries.shape[1], database.shape[1], k))
+    layout = plan(queries.shape[1], database.shape[1], k)
+    if k <= MAX_K:
+        d2, idx = run_plan(queries, database, k, *layout)
+    else:
+        d2 = torch.empty((k, queries.shape[1]), dtype=torch.float32, device=queries.device)
+        idx = torch.empty((k, queries.shape[1]), dtype=torch.int32, device=queries.device)
+        for round_ in layout:
+            search_round(queries, database, d2, idx, *round_)
     knn.launches += 1
     return d2, idx
 

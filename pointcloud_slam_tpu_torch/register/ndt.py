@@ -12,8 +12,9 @@ The More-Thuente line search of the reference is the shared
 Levenberg-Marquardt-damped Gauss-Newton step (`solver._gn_update`), with
 the Gauss-Newton approximation of the exponential score. The search
 schedule is static (warm-up rounds of one iteration, then rounds of
-`search_every`), so an align is a fixed sequence of launches; its one host
-read is the final `eigvalsh` (`torch.linalg` checks its info on the host).
+`search_every`), so an align is a fixed sequence of launches with no host
+read: the final eigenvalues are `ops.small_eigh.eigvalsh` (kernel K6 on the
+card; `torch.linalg.eigvalsh` would check its info on the host).
 
 The unbaked correspondence search is one `gg.probe` of every (point,
 stencil offset) pair and a gather of the matched voxels' statistics: the
@@ -34,6 +35,7 @@ import torch
 from .. import ops
 from ..geom import se3
 from ..ops import gaussian_grid as gg
+from ..ops import small_eigh
 from ..ops.voxel_grid import _stencil_tensor
 from . import solver
 from .vgicp import _check_bake_coverage, _point_jacobian, _src_cov_world, _sym3, _sym_inv3, _weighted_terms
@@ -207,7 +209,7 @@ def align_d2d(
     for _ in range(scfg.max_iterations):
         H, b, err = linearize(pose)
         pose, done, iters, _ = solver._gn_update(H, b, pose, done, iters, scfg, lam=1e-6 * H.diagonal().abs().amax())
-    return NDTResult(pose, done, iters, -err, H, torch.linalg.eigvalsh(H)[-1])
+    return NDTResult(pose, done, iters, -err, H, small_eigh.eigvalsh(H)[-1])
 
 
 def align(
@@ -252,4 +254,4 @@ def align(
         cache = (source.new_zeros((3, S, N)), source.new_zeros((6, S, N)),
                  torch.zeros((S, N), dtype=torch.bool, device=source.device))
     H, b, err = _linearize_cached(d1, d2, *cache, pose.apply(source), source)
-    return NDTResult(pose, done, iters, -err, H, torch.linalg.eigvalsh(H)[-1])
+    return NDTResult(pose, done, iters, -err, H, small_eigh.eigvalsh(H)[-1])

@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..geom import se3
+from ..ops import small_eigh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +70,12 @@ def degeneracy_projection(H: torch.Tensor, threshold: float):
     eigenvalues ascending, the reference's zero-trailing-rows-until-first-keep
     loop is exactly `keep = w > threshold`.
 
-    `torch.linalg.eigh` checks its info on the host on CUDA tensors: a sync
-    per call. Every default config has `degeneracy_threshold=0.0`, so
-    `inline_projection` keeps this off the solve path."""
-    w, V = torch.linalg.eigh(H)
+    The eigendecomposition is `ops.small_eigh.eigh`: on CUDA tensors one
+    launch of kernel K6 and no host read (`torch.linalg.eigh` checks its
+    info on the host); on CPU tensors `torch.linalg.eigh`. Every default
+    config has `degeneracy_threshold=0.0`, so `inline_projection` keeps this
+    off the solve path."""
+    w, V = small_eigh.eigh(H)
     keep = (w > threshold).to(H.dtype)
     P = (V * keep[..., None, :]) @ V.mT
     return torch.any(w <= threshold, dim=-1), P

@@ -108,8 +108,9 @@ def test_plain_split_short_database():
 
 @pytest.mark.parametrize("k", [9, 21, bf_knn.MAX_K, bf_knn.MAX_K + 1, 100])
 def test_cpu_path_takes_any_k(rng, k):
-    """MAX_K is the card's limit (the lists live in registers there); on CPU
-    tensors `knn` is the plain version and takes any k."""
+    """MAX_K is the card's list length (the lists live in registers there; a
+    longer k runs in rounds); on CPU tensors `knn` is the plain version and
+    takes any k."""
     db = rng.uniform(-5, 5, size=(3, 400)).astype(np.float32)
     q = rng.uniform(-5, 5, size=(3, 60)).astype(np.float32)
     d2, idx = bf_knn.knn(torch.from_numpy(q), torch.from_numpy(db), k=k)
@@ -133,8 +134,46 @@ def test_plan_covers_every_k(n, m, k):
 
 @pytest.mark.parametrize("k", [0, bf_knn.MAX_K + 1])
 def test_plan_refuses_k_outside_the_cards_range(k):
-    with pytest.raises(ValueError, match=str(bf_knn.MAX_K)):
-        bf_knn.plan(100, 100, k)
+    """k < 1 is refused. A k above the list length MAX_K, which the card
+    once refused, is laid out in rounds: (row0, rows, instance, splits) of
+    at most MAX_K rows each, covering rows 0 .. k - 1 in order, each with
+    the plan of its own row count."""
+    if k < 1:
+        with pytest.raises(ValueError, match=str(bf_knn.MAX_K)):
+            bf_knn.plan(100, 100, k)
+        return
+    for n, m, kk in ((100, 100, k), (6144, 28093, 64), (20000, 20000, 100)):
+        layout = bf_knn.plan(n, m, kk)
+        assert [r[0] for r in layout] == list(range(0, kk, bf_knn.MAX_K))
+        assert sum(r[1] for r in layout) == kk and all(1 <= r[1] <= bf_knn.MAX_K for r in layout)
+        assert all(r[2:] == bf_knn.plan(n, m, r[1]) for r in layout)
+    assert bf_knn.plan(100, 100, k) == ((0, 32, 32, 4), (32, 1, 1, 4))
+
+
+@pytest.mark.parametrize("k", [33, 40, 64, 100])
+@pytest.mark.parametrize("case", ["ties", "uniform", "short_database"])
+def test_plain_rounds_equal_plain(k, case):
+    """The mirror of the kernel's rounds (each after the floor of the round
+    before) against the single search, bit for bit: integer coordinates with
+    masses of equal distances across every round edge, a uniform cloud, and
+    a database shorter than k (its rows past M are -1 / 3e38)."""
+    if case == "ties":
+        q, db = _tied_clouds(200 + k)
+    else:
+        g = np.random.default_rng(k)
+        m = 777 if case == "uniform" else k // 2 + 3
+        q = torch.from_numpy(g.uniform(-5, 5, size=(3, 301)).astype(np.float32))
+        db = torch.from_numpy(g.uniform(-5, 5, size=(3, m)).astype(np.float32))
+    d2, idx = bf_knn.knn_plain(q, db, k)
+    rd2, ridx = bf_knn.knn_plain_rounds(q, db, k)
+    assert ridx.dtype == torch.int32 and rd2.shape == (k, q.shape[1])
+    assert torch.equal(rd2, d2) and torch.equal(ridx, idx)
+    if case == "short_database":
+        m = db.shape[1]
+        assert bool((ridx[m:] == -1).all()) and bool((rd2[m:] > 1e38).all())
+    if case == "ties":   # a distance shared across a round edge in most queries
+        edge = bf_knn.MAX_K
+        assert float((d2[edge - 1] == d2[edge]).float().mean()) > 0.5
 
 
 def test_masked_points_never_selected(rng):

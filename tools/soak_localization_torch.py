@@ -63,6 +63,7 @@ def main(argv=None):
     from pointcloud_slam_tpu_torch.io import synthetic
     from pointcloud_slam_tpu_torch.models.liosam import scan2map as s2m
     from pointcloud_slam_tpu_torch.models.localization import pipeline as loc
+    from pointcloud_slam_tpu_torch.ops import small_eigh
 
     corners_w, surfs_w = synthetic.make_feature_world(seed=3)
     # degeneracy_eig=1.0 as bench.py config 8: the reference's threshold (100)
@@ -104,6 +105,7 @@ def main(argv=None):
     period = 1.0 / args.hz
     loss_frame = int(n_frames * args.loss_at_frac)
     lats, errs, misses, losses, recoveries = [], [], 0, 0, 0
+    k6_start = small_eigh.eigh.launches + small_eigh.eigvalsh.launches
     t_start = time.perf_counter()
     for k in range(n_frames):
         deadline = t_start + k * period
@@ -145,6 +147,10 @@ def main(argv=None):
         "err_p50_m": round(float(np.percentile(errs, 50)), 4),
         "err_max_m": round(float(np.max(errs)), 4),
         "err_final_m": round(errs[-1], 4),
+        # kernel K6 (scan-to-map's eigendecompositions) on the card, over the
+        # matches of the paced frames and their relocalizations
+        "k6_launches": small_eigh.eigh.launches + small_eigh.eigvalsh.launches - k6_start,
+        "matches": n_frames + losses,
     }))
 
 
