@@ -71,7 +71,9 @@ kernel on them against its plain PyTorch version. Phases:
      the same in float64) and on batches of 24 and 1,000 of them turned by
      random rotations: eigenvalues within 1e-5 (f32) / 1e-12 (f64) x
      max|lambda|, projectors within 1e-4 away from the thresholds; K6's ms
-     (one call at a time, back to back) beside torch.linalg.eigh's
+     (one call at a time, back to back), its device time a launch (a CUDA
+     graph of 100 launches), the wrapper's host time a call and both at
+     n = 1 (the launch floor), beside torch.linalg.eigh's
  11. recorded data: tools/make_dataset_torch.py writes a 20-frame LIO
      dataset and its bag under build/; the mapping app's directory, native
      bag and Python bag sources must build the same frames; its three
@@ -186,6 +188,56 @@ def cuda_ms_back_to_back(fn, reps=100):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps=100, replays=10):
+    """The device's time a launch of fn, without the host's time between
+    launches that `cuda_ms_back_to_back` includes: `reps` calls of fn (after
+    one warm-up call) captured in one CUDA graph, the graph replayed
+    `replays` times between two CUDA events, over reps x replays. Every
+    launch is timed, and the gap between two kernels of a graph is part of
+    the time. fn returns the tensor its kernel writes (or a tuple led by
+    one): the check that the graph holds the kernel fills it with NaN and
+    replays the graph, which must write the same values again."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    out = out[0] if isinstance(out, tuple) else out
+    graph.replay()
+    torch.cuda.synchronize()
+    want = out.clone()
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(want).all()) and torch.equal(out, want), "a graph replay did not rerun the kernel")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (reps * replays)
+
+
+def host_ms(fn, reps=1000):
+    """The host's time a call: `reps` calls queued with no synchronise between
+    them on a host clock (one warm-up call before; one synchronise after,
+    outside the time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def compare_knn(bf_knn, q, db, k):
@@ -490,17 +542,20 @@ def k6_bound_ms(A, vectors):
     """The least time an H100 could take for K6 on A (B, n, n): the larger of
     the bytes it must move (A read once, w and V written once) over 3.35
     TB/s and the operations of the sweeps this data needs (counted with
-    `eigh_jacobi_mirror` on the same input: per rotation 12 n + 44 flops
-    with the eigenvectors, 6 n + 32 without, atan2 and sincos at 20 each)
-    over 67 TFLOP/s (FP32) or 33.5 (FP64). Returns (ms, "bytes" or
-    "operations"); a single launch's latency lies far above either."""
+    `eigh_jacobi_mirror` on the same input; every pair is rotated each
+    sweep, a = 0 pair as the identity) over 67 TFLOP/s (FP32) or 33.5
+    (FP64). A rotation is 12 n + 5 operations with the eigenvectors, 6 n + 5
+    without: its angle 13 (3 divisions and 2 square roots counted as one
+    each), the two diagonal updates 4, and 6 for each other row of A and of
+    V. Returns (ms, "bytes" or "operations"); a single launch's latency lies
+    far above either."""
     from pointcloud_slam_tpu_torch.ops import small_eigh
 
     B, n = A.reshape(-1, A.shape[-1], A.shape[-1]).shape[:2]
     size = A.element_size()
     by = size * B * (n * n + n + (n * n if vectors else 0))
     sweeps = int(small_eigh.eigh_jacobi_mirror(A)[2].sum())
-    ops = sweeps * n * (n - 1) // 2 * ((12 * n + 44) if vectors else (6 * n + 32))
+    ops = sweeps * n * (n - 1) // 2 * ((12 * n + 5) if vectors else (6 * n + 5))
     t_bytes, t_ops = by / 3.35e12 * 1e3, ops / (67e12 if size == 4 else 33.5e12) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -541,10 +596,13 @@ def compare_eigh(A, thresholds):
     return out
 
 
-def k6_times(A):
-    """K6's ms on A (one call at a time, back to back), eigvalsh's, the
-    plain version's, which is the library call (torch.linalg.eigh, reading
-    its info back), torch.linalg.eigvalsh's, and the bound."""
+def k6_times(A, floor):
+    """K6's ms on A (one call at a time, back to back), its device time a
+    launch (`device_ms`) and the wrapper's host time a call (`host_ms`),
+    `floor` (the same two at n = 1, where the kernel rotates nothing),
+    eigvalsh's ms, the plain version's, which is the library call
+    (torch.linalg.eigh, reading its info back), torch.linalg.eigvalsh's, and
+    the bound."""
     import torch
 
     from pointcloud_slam_tpu_torch.ops import small_eigh
@@ -554,9 +612,23 @@ def k6_times(A):
     return dict(batch=int(A.reshape(-1, 6, 6).shape[0]), dtype=str(A.dtype).split(".")[1],
                 ms=cuda_ms(lambda: small_eigh.eigh(A), reps=20),
                 ms_back_to_back=cuda_ms_back_to_back(lambda: small_eigh.eigh(A)),
+                device_ms=device_ms(lambda: small_eigh.eigh(A)),
+                host_ms=host_ms(lambda: small_eigh.eigh(A)), floor_ms=floor,
                 eigvalsh_ms=cuda_ms(lambda: small_eigh.eigvalsh(A), reps=20), plain_ms=plain, library_ms=plain,
                 library_eigvalsh_ms=cuda_ms(lambda: torch.linalg.eigvalsh(A), reps=20),
                 bound_ms=bound, bound_by=bound_by)
+
+
+def k6_floor(dev, dtype):
+    """K6's launch floor on this path: `device_ms` and `host_ms` of `eigh` on
+    one 1 x 1 matrix, where the kernel does no rotation."""
+    import torch
+
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    one = torch.ones(1, 1, 1, dtype=dtype, device=dev)
+    return dict(device_ms=device_ms(lambda: small_eigh.eigh(one)),
+                host_ms=host_ms(lambda: small_eigh.eigh(one)))
 
 
 def run_k6_check(dev, loam_inputs, ndt_inputs):
@@ -564,8 +636,8 @@ def run_k6_check(dev, loam_inputs, ndt_inputs):
     on the main path (one LOAM frame's scan-to-map eigh and eigvalsh, one
     NDT align's eigvalsh) and on batches of 24 and 1,000 of them turned by
     random rotations, at the thresholds 1.0 (config 8) and 100 (the SLAM
-    default); then its times at batch 1 (f32, f64), 24 and 1,000. Returns
-    (errors, times)."""
+    default); then its times at batch 1 (f32, f64), 24 and 1,000, each with
+    the launch floor of its dtype. Returns (errors, times)."""
     import torch
 
     sites = {"scan_to_map_eigh": [a for a, v in loam_inputs if v],
@@ -580,8 +652,9 @@ def run_k6_check(dev, loam_inputs, ndt_inputs):
     errors = {name: compare_eigh(torch.stack(v), (1.0, 100.0)) for name, v in sites.items()}
     errors.update({f"batch_{b}": compare_eigh(h, (1.0, 100.0)) for b, h in batches.items()})
     h1 = sites["scan_to_map_eigh"][0].reshape(1, 6, 6).contiguous()
-    times = {"batch_1_f32": k6_times(h1), "batch_1_f64": k6_times(h1.double()),
-             "batch_24_f32": k6_times(batches[24]), "batch_1000_f32": k6_times(batches[1000])}
+    f32, f64 = k6_floor(dev, torch.float32), k6_floor(dev, torch.float64)
+    times = {"batch_1_f32": k6_times(h1, f32), "batch_1_f64": k6_times(h1.double(), f64),
+             "batch_24_f32": k6_times(batches[24], f32), "batch_1000_f32": k6_times(batches[1000], f32)}
     return errors, times
 
 

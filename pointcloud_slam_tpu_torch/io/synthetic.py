@@ -8,7 +8,8 @@ package's `feed.make_frame` on the requested device; `make_feature_world`
 and `take_scan` feed the SLAM tests, `chip_smoke.py` and
 `apps/run_slam_offline_torch.py`; the hard worlds (`make_corridor_world`,
 `make_doorway_world` with `take_scan_occluded`, `moving_object_points`) feed
-the degeneracy, doorway and dynamic-object scenarios.
+the degeneracy, doorway and dynamic-object scenarios; `eigh_hard_spectra`
+feeds the small-eigh kernel's tests.
 """
 
 from __future__ import annotations
@@ -485,3 +486,35 @@ def drifting_circle_graph(cfg, n_loops, stride, span, radius=20.0, climb=0.05, r
         loop_i=f(li, torch.int32), loop_j=f(lj, torch.int32), loop_t=f(loop_t), loop_info=f(loop_info),
         n_loops=f(n_loops, torch.int32))
     return g, t_true, t_noisy
+
+
+def eigh_hard_spectra(seed=0):
+    """Hard inputs for kernel K6 (`ops.small_eigh`): (batch, 6, 6) float64
+    symmetric matrices by name — ties, a rank-deficient corridor, scales
+    1e-30 to 1e34, condition 1e8, indefinite, zero. Every one stays inside
+    float32's range; "scale_1e-30" and "scale_1e34" put the off-diagonal
+    entries below 2^-120 and the entries near 2^120 in float32, which K6
+    takes by IEEE division and square root."""
+    g = np.random.default_rng(seed)
+    Q = np.linalg.qr(g.normal(size=(64, 6, 6)))[0]
+    J = g.normal(size=(64, 6, 120))
+    corridor = J.copy()
+    corridor[:, 0] = 0.0                 # one translation unobserved: a zero eigenvalue
+    corridor[:, 4] *= 1e-4               # one nearly so
+    cond = 10.0 ** g.uniform(-2, 6, size=(64, 6))
+    cond[:, 0], cond[:, 1] = 1e-2, 1e6   # condition number 1e8
+    ties = np.tile([1.0, 1.0, 1.0, 5.0, 5.0, 9.0], (64, 1))
+    gram = J @ J.transpose(0, 2, 1)
+    return {
+        "identity": np.tile(np.eye(6), (4, 1, 1)),
+        "diagonal_ties": np.tile(np.diag([3.0, 1.0, 3.0, 2.0, 1.0, 3.0]), (4, 1, 1)),
+        "rotated_ties": Q @ (ties[..., None] * Q.transpose(0, 2, 1)),
+        "corridor_rank_deficient": Q @ corridor @ corridor.transpose(0, 2, 1) @ Q.transpose(0, 2, 1),
+        "scale_1e-3": 1e-3 * gram,
+        "scale_1e6": 1e6 * gram,
+        "scale_1e-30": 1e-30 * gram,
+        "scale_1e34": 1e34 * gram,
+        "condition_1e8": Q @ (cond[..., None] * Q.transpose(0, 2, 1)),
+        "indefinite": (lambda X: X + X.transpose(0, 2, 1))(g.normal(size=(64, 6, 6))),
+        "zero": np.zeros((2, 6, 6)),
+    }

@@ -8,12 +8,14 @@ stays on the device. On CUDA tensors PyTorch's eigh checks its `info` on the
 host, a device -> host read every call; the kernel reads nothing back.
 
 On CUDA tensors `eigh` and `eigvalsh` launch the hand-written kernel
-`csrc/small_eigh.cu` (one thread a matrix, cyclic Jacobi, one launch a call;
-built with the other kernels by `_cuda.library()`); a build or launch
-failure raises, and there is no fallback. On CPU tensors they run the plain
-version, `eigh_plain` = `torch.linalg.eigh`. Both read the lower triangle
-only. `eigh_jacobi_mirror` repeats the kernel's sweeps in plain PyTorch, for
-the CPU tests (as `bf_knn.knn_plain_split` mirrors K1's split).
+`csrc/small_eigh.cu` (one thread a matrix, parallel-ordered Jacobi with
+algebraic rotations, one launch a call; built with the other kernels by
+`_cuda.library()`); a build or launch failure raises, and there is no
+fallback. On CPU tensors they run the plain version, `eigh_plain` =
+`torch.linalg.eigh`. Both read the lower triangle only.
+`eigh_jacobi_mirror` repeats the kernel's sweeps in plain PyTorch, for the
+CPU tests (as `bf_knn.knn_plain_split` mirrors K1's split), and
+`jacobi_schedule` is the one place the sweep's order is written in Python.
 
 Compare the kernel with the plain version by eigenvalues and by spectral
 projectors V diag(w > t) V^T, never by raw V: eigenvector signs, and the
@@ -28,6 +30,29 @@ from . import _cuda
 
 MAX_N = 8          # kMaxN of csrc/small_eigh.cu: the largest n the kernel is instantiated for
 MAX_SWEEPS = 16    # kMaxSweeps of csrc/small_eigh.cu
+# TauBig<T>::value of csrc/small_eigh.cu: above it tau^2 could overflow, and t = 1 / (2 tau)
+TAU_BIG = {torch.float32: 2.0 ** 60, torch.float64: 2.0 ** 500}
+
+
+def jacobi_schedule(n: int) -> list[list[tuple[int, int]]]:
+    """The kernel's order of rotations in a sweep (its `kSchedule`): a list of
+    steps, each a list of disjoint pairs (p, q) in the order and orientation
+    the kernel rotates them. Every pair of 0..n-1 comes once a sweep. Round
+    robin by the circle method, as the kernel runs it: with m = n rounded up
+    to even and L = m - 1, the kernel rotates the fixed pairs (k, m - 1 - k)
+    of a relabeled matrix and turns the labels 0..L-1 by one after each
+    step, so step s pairs pi(k), pi(m - 1 - k) with pi(i) = (i + s) mod L
+    (and pi(L) = L). Even n gives n - 1 steps of n / 2 pairs; odd n gives n
+    steps, the pair of each step that holds the padding label n (a bye) left
+    out."""
+    m = n + n % 2
+    L = m - 1
+    steps = []
+    for s in range(L):
+        def pi(i):
+            return i if i == L else (i + s) % L
+        steps.append([(pi(k), pi(m - 1 - k)) for k in range(m // 2) if m - 1 - k < n])
+    return steps
 
 
 def eigh_plain(A: torch.Tensor):
@@ -97,23 +122,31 @@ def eigvalsh(A: torch.Tensor) -> torch.Tensor:
 eigvalsh.launches = 0
 
 
-def eigh_jacobi_mirror(A: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
-    """The kernel's algorithm in plain PyTorch, for the CPU tests: cyclic
-    Jacobi on the lower triangle of each (..., n, n) matrix with the angle
-    1/2 atan2(2 a_pq, a_pp - a_qq) of `geom.fit.eigh_small`; no rotation
-    where a_pq is exactly 0, a rotated a_pq set to 0; a matrix stops when
-    every off-diagonal |a_pq| is at most the dtype's eps times its largest
-    |a_ii|, or after `max_sweeps`; then a stable ascending sort of the
-    diagonal carries V's columns. Returns (w, V, sweeps run per matrix)."""
+def eigh_jacobi_mirror(A: torch.Tensor, max_sweeps: int = MAX_SWEEPS, eps: float | None = None):
+    """The kernel's algorithm in plain PyTorch, for the CPU tests: Jacobi
+    sweeps on the lower triangle of each (..., n, n) matrix in the order of
+    `jacobi_schedule(n)`, each rotation Rutishauser's (Golub & Van Loan,
+    sym.schur2): tau = (a_qq - a_pp) / (2 a_pq), t = sign(tau) / (|tau| +
+    sqrt(1 + tau^2)) (1 / (2 tau) above `TAU_BIG`), c = 1 / sqrt(1 + t^2),
+    s = t c, a_pp -= t a_pq, a_qq += t a_pq, a_pq = 0. Where a_pq is exactly
+    0, t = 0 (the rotation is the identity). The kernel takes t, c and s
+    from refined approximations where they hold and by IEEE arithmetic, as
+    here, elsewhere: the two differ by rounding. A matrix stops when every
+    off-diagonal |a_pq| is at most `eps` (default the dtype's machine
+    epsilon) times its largest |a_ii|, or after `max_sweeps`; a NaN never
+    stops it. Then a stable ascending sort of the diagonal carries V's
+    columns. Returns (w, V, sweeps run per matrix)."""
     n = A.shape[-1]
     batch_shape = A.shape[:-2]
     low = torch.tril(A.reshape(-1, n, n))
     a = low + torch.tril(low, -1).mT
     B = a.shape[0]
     V = torch.eye(n, dtype=A.dtype, device=A.device).expand(B, n, n).clone()
-    eps = torch.finfo(A.dtype).eps
+    eps = torch.finfo(A.dtype).eps if eps is None else eps
+    big = TAU_BIG[A.dtype]
     iu = torch.triu_indices(n, n, 1, device=A.device)
     sweeps = torch.zeros(B, dtype=torch.int64, device=A.device)
+    schedule = jacobi_schedule(n)
     for _ in range(max_sweeps):
         off = a[:, iu[0], iu[1]].abs().amax(dim=1) if n > 1 else a.new_zeros(B)
         diag = torch.diagonal(a, dim1=1, dim2=2).abs().amax(dim=1)
@@ -121,29 +154,27 @@ def eigh_jacobi_mirror(A: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
         if not bool(active.any()):
             break
         sweeps += active.to(torch.int64)
-        for p in range(n - 1):
-            for q in range(p + 1, n):
+        on = active[:, None]
+        for step in schedule:
+            for p, q in step:
                 apq, app, aqq = a[:, p, q], a[:, p, p], a[:, q, q]
-                rot = active & (apq != 0)
-                theta = 0.5 * torch.atan2(2.0 * apq, app - aqq)
-                c = torch.where(rot, torch.cos(theta), 1.0)
-                s = torch.where(rot, torch.sin(theta), 0.0)
+                tau = (aqq - app) / (2.0 * apq)
+                at = tau.abs()
+                t = torch.copysign(1.0 / torch.where(at > big, 2.0 * at, at + torch.sqrt(1.0 + tau * tau)), tau)
+                t = torch.where(apq == 0, 0.0, t)
+                c = 1.0 / torch.sqrt(1.0 + t * t)
+                s = t * c
+                c, s = c[:, None], s[:, None]
                 others = [r for r in range(n) if r not in (p, q)]
                 if others:
                     arp, arq = a[:, others, p], a[:, others, q]
-                    new_p = c[:, None] * arp + s[:, None] * arq
-                    new_q = c[:, None] * arq - s[:, None] * arp
-                    a[:, others, p] = a[:, p, others] = torch.where(rot[:, None], new_p, arp)
-                    a[:, others, q] = a[:, q, others] = torch.where(rot[:, None], new_q, arq)
-                cs2 = 2.0 * c * s * apq
-                new_pp = c * c * app + cs2 + s * s * aqq
-                new_qq = s * s * app - cs2 + c * c * aqq
-                a[:, p, p] = torch.where(rot, new_pp, app)
-                a[:, q, q] = torch.where(rot, new_qq, aqq)
-                a[:, p, q] = a[:, q, p] = torch.where(rot, 0.0, apq)
+                    a[:, others, p] = a[:, p, others] = torch.where(on, c * arp - s * arq, arp)
+                    a[:, others, q] = a[:, q, others] = torch.where(on, s * arp + c * arq, arq)
+                a[:, p, p] = torch.where(active, app - t * apq, app)
+                a[:, q, q] = torch.where(active, aqq + t * apq, aqq)
+                a[:, p, q] = a[:, q, p] = torch.where(active, 0.0, apq)
                 vp, vq = V[:, :, p], V[:, :, q]
-                V[:, :, p], V[:, :, q] = (torch.where(rot[:, None], c[:, None] * vp + s[:, None] * vq, vp),
-                                          torch.where(rot[:, None], c[:, None] * vq - s[:, None] * vp, vq))
+                V[:, :, p], V[:, :, q] = torch.where(on, c * vp - s * vq, vp), torch.where(on, s * vp + c * vq, vq)
     d = torch.diagonal(a, dim1=1, dim2=2)
     order = torch.argsort(d, dim=1, stable=True)
     w = torch.gather(d, 1, order)

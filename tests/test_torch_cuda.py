@@ -328,6 +328,119 @@ def test_small_eigh_kernel_hard_cases(cuda):
     assert small_eigh.eigh.launches == before
 
 
+@pytest.fixture(scope="module")
+def counting_eigh(tmp_path_factory):
+    """K6 from a counting build of its own (csrc/small_eigh.cu with
+    -DPCS_COUNTERS, which adds `pcs_small_eigh_sweeps`), called through its C
+    entry on a card tensor A (B, n, n): (w, V, sweeps per matrix)."""
+    import ctypes
+    import subprocess
+
+    from pointcloud_slam_tpu_torch.ops import _cuda
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    so = tmp_path_factory.mktemp("k6_counting") / "libsmall_eigh_counting.so"
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-DPCS_COUNTERS", "-shared", "-o", str(so),
+                    str(_cuda.CSRC / "small_eigh.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.pcs_small_eigh.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.pcs_small_eigh_sweeps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+
+    def run(A):
+        B, n = A.shape[0], A.shape[-1]
+        w = torch.empty(B, n, dtype=A.dtype, device=A.device)
+        V = torch.empty(B, n, n, dtype=A.dtype, device=A.device)
+        err = lib.pcs_small_eigh(A.data_ptr(), B, n, w.data_ptr(), V.data_ptr(), 1, int(A.dtype == torch.float64),
+                                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        torch.cuda.synchronize()
+        sweeps = torch.empty(B, dtype=torch.int32)
+        assert lib.pcs_small_eigh_sweeps(sweeps.data_ptr(), B) == 0
+        return w, V, sweeps.to(torch.int64)
+    return run
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_small_eigh_kernel_matches_mirror_on_hard_cases(cuda, counting_eigh, dtype):
+    """K6 against `eigh_jacobi_mirror` (its sweeps in PyTorch, on the CPU) on
+    the hard spectra: eigenvalues within 2e-6 (f32) / 1e-13 (f64) x
+    max|lambda| (the two differ by rounding only: the card contracts a * b
+    + c into one FMA, and its fast path divides and takes square roots to
+    one ulp, not always IEEE's rounding); the same sweeps for every matrix
+    whose count does not sit on the stop threshold (the mirror's count is
+    the same with eps / 4 and 4 eps). Where the smallest |lambda| is at most
+    eps x max|lambda| (the rank-deficient corridor, float32 at condition
+    1e8, the zero matrix), the off-diagonal entries of its row end as
+    rounding noise of the size the stop test reads, so a matrix there may
+    take one sweep more or less. Tied eigenvalues are left out of the count:
+    the angle of a tied pair comes from rounding noise, so two roundings take
+    other paths (there only the stop before MAX_SWEEPS is checked)."""
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    tol = 2e-6 if dtype == torch.float32 else 1e-13
+    eps = torch.finfo(dtype).eps
+    for case, A0 in synthetic.eigh_hard_spectra().items():
+        A = torch.from_numpy(A0).to(dtype)
+        w, _, sweeps = counting_eigh(A.to(cuda))
+        wm, _, sweeps_m = small_eigh.eigh_jacobi_mirror(A)
+        scale = wm.abs().amax(dim=-1, keepdim=True).clamp(min=torch.finfo(dtype).tiny)
+        err = float(((w.cpu() - wm).abs() / scale).max())
+        assert err <= tol, (case, err)
+        assert int(sweeps.max()) < small_eigh.MAX_SWEEPS, (case, int(sweeps.max()))
+        if case == "rotated_ties":
+            continue
+        clear = small_eigh.eigh_jacobi_mirror(A, eps=eps / 4)[2] == small_eigh.eigh_jacobi_mirror(A, eps=4 * eps)[2]
+        assert bool(clear.float().mean() >= 0.5), case
+        noisy = wm.abs().amin(dim=-1) <= eps * scale[:, 0]
+        diff = (sweeps - sweeps_m).abs()
+        assert bool((diff[clear & ~noisy] == 0).all()), (case, sweeps[clear], sweeps_m[clear])
+        assert bool((diff[clear & noisy] <= 1).all()), (case, sweeps[clear], sweeps_m[clear])
+
+
+def test_small_eigh_kernel_every_n_in_float32(cuda):
+    """Every n from 1 to 8 in float32 (the odd n run the schedule's bye),
+    with batch dimensions kept and the upper triangle ignored: eigenvalues
+    within 1e-5 x max|lambda| of torch.linalg.eigh in float64, V orthogonal
+    and V diag(w) V^T the matrix within 1e-4 x max|lambda|."""
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    g = np.random.default_rng(1)
+    for n in range(1, 9):
+        X = torch.from_numpy(g.normal(size=(3, 4, n, n)))
+        A = (torch.tril(X + X.mT) + torch.triu(torch.from_numpy(g.normal(size=(3, 4, n, n))), 1)).float().to(cuda)
+        w, V = small_eigh.eigh(A)
+        wp = torch.linalg.eigvalsh(A.double())
+        assert w.shape == (3, 4, n) and V.shape == (3, 4, n, n) and w.dtype == torch.float32
+        scale = float(wp.abs().max())
+        assert float((w.double() - wp).abs().max()) <= 1e-5 * scale, n
+        assert float((V.mT @ V - torch.eye(n, device=cuda)).abs().max()) <= 1e-4, n
+        low = torch.tril(A) + torch.tril(A, -1).mT
+        assert float((V @ torch.diag_embed(w) @ V.mT - low).abs().max()) <= 1e-4 * scale, n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_small_eigh_kernel_nan_stays_in_its_matrix(cuda, dtype):
+    """A NaN in one matrix of a batch: that matrix's eigenvalues are not all
+    finite (a NaN never stops the sweeps early), and every other matrix of
+    the batch gets exactly what it gets without the NaN (one thread a
+    matrix)."""
+    from pointcloud_slam_tpu_torch.ops import small_eigh
+
+    A = _eigh_inputs(24, dtype, 5).to(cuda)
+    bad = A.clone()
+    bad[7, 3, 2] = float("nan")
+    w, V = small_eigh.eigh(A)
+    wn, Vn = small_eigh.eigh(bad)
+    wv = small_eigh.eigvalsh(bad)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(wn[7]).all()) and not bool(torch.isfinite(wv[7]).all())
+    keep = torch.arange(24, device=cuda) != 7
+    assert torch.equal(wn[keep], w[keep]) and torch.equal(Vn[keep], V[keep])
+
+
 def _to(tree, dev):
     """A NamedTuple of tensors (nested) on another device."""
     if isinstance(tree, tuple):

@@ -13,6 +13,7 @@ the reconstruction V diag(w) V^T: their signs, and the basis of a repeated
 eigenvalue, are arbitrary.
 """
 
+import ast
 import re
 from pathlib import Path
 
@@ -117,31 +118,8 @@ def test_jacobi_mirror_on_frame_normal_equations(frame_h):
             torch.testing.assert_close(_projector(w[b], V[b], t), _projector(wp[b], Vp[b], t), rtol=0, atol=1e-4)
 
 
-def _hard_cases():
-    g = np.random.default_rng(0)
-    Q = np.linalg.qr(g.normal(size=(64, 6, 6)))[0]
-    J = g.normal(size=(64, 6, 120))
-    corridor = J.copy()
-    corridor[:, 0] = 0.0                 # one translation unobserved: a zero eigenvalue
-    corridor[:, 4] *= 1e-4               # one nearly so
-    cond = 10.0 ** g.uniform(-2, 6, size=(64, 6))
-    cond[:, 0], cond[:, 1] = 1e-2, 1e6   # condition number 1e8
-    ties = np.tile([1.0, 1.0, 1.0, 5.0, 5.0, 9.0], (64, 1))
-    return {
-        "identity": np.tile(np.eye(6), (4, 1, 1)),
-        "diagonal_ties": np.tile(np.diag([3.0, 1.0, 3.0, 2.0, 1.0, 3.0]), (4, 1, 1)),
-        "rotated_ties": Q @ (ties[..., None] * Q.transpose(0, 2, 1)),
-        "corridor_rank_deficient": Q @ corridor @ corridor.transpose(0, 2, 1) @ Q.transpose(0, 2, 1),
-        "scale_1e-3": 1e-3 * (J @ J.transpose(0, 2, 1)),
-        "scale_1e6": 1e6 * (J @ J.transpose(0, 2, 1)),
-        "condition_1e8": Q @ (cond[..., None] * Q.transpose(0, 2, 1)),
-        "indefinite": (lambda X: X + X.transpose(0, 2, 1))(g.normal(size=(64, 6, 6))),
-        "zero": np.zeros((2, 6, 6)),
-    }
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("case", list(_hard_cases()))
+@pytest.mark.parametrize("case", list(tsyn.eigh_hard_spectra()))
 def test_jacobi_mirror_hard_cases(case, dtype):
     """Repeated eigenvalues, a rank-deficient corridor-like H, scales from
     1e-3 to 1e6, a 1e8 condition number, indefinite and zero matrices: the
@@ -149,7 +127,7 @@ def test_jacobi_mirror_hard_cases(case, dtype):
     1e-5 (f32) / 1e-12 (f64) x max|lambda| of torch.linalg.eigh; V orthogonal
     and V diag(w) V^T the matrix to the same relative tolerance (x 10);
     exactly diagonal input is not rotated at all."""
-    A = torch.from_numpy(_hard_cases()[case]).to(dtype)
+    A = torch.from_numpy(tsyn.eigh_hard_spectra()[case]).to(dtype)
     w, V, sweeps = small_eigh.eigh_jacobi_mirror(A)
     wp = torch.linalg.eigvalsh(A)
     scale = wp.abs().amax(dim=-1, keepdim=True).clamp(min=torch.finfo(dtype).tiny)
@@ -211,8 +189,33 @@ def test_wrappers_never_fall_back_off_the_cpu():
     assert (small_eigh.eigh.launches, small_eigh.eigvalsh.launches) == before
 
 
+@pytest.mark.parametrize("n", range(1, small_eigh.MAX_N + 1))
+def test_jacobi_schedule_is_a_round_robin(n):
+    """Every pair of 0..n-1 comes exactly once a sweep, and the pairs within a
+    step are disjoint (their rotations act on disjoint planes, so the kernel
+    takes their angles side by side): n - 1 steps of n / 2 pairs for even n,
+    n steps of (n - 1) / 2 pairs and a bye for odd n."""
+    steps = small_eigh.jacobi_schedule(n)
+    assert len(steps) == (n if n % 2 else n - 1)
+    pairs = sorted((min(p, q), max(p, q)) for step in steps for p, q in step)
+    assert pairs == [(p, q) for p in range(n) for q in range(p + 1, n)]
+    for step in steps:
+        touched = [i for pq in step for i in pq]
+        assert len(step) == n // 2 and len(set(touched)) == len(touched), step
+
+
 def test_mirror_constants_match_the_kernel_source():
-    """MAX_N and MAX_SWEEPS are the CUDA source's kMaxN and kMaxSweeps."""
+    """MAX_N, MAX_SWEEPS and TAU_BIG are the CUDA source's kMaxN,
+    kMaxSweeps and TauBig, and its kSchedule table is `jacobi_schedule(n)`
+    for every n."""
     src = (Path(small_eigh.__file__).resolve().parent.parent / "csrc" / "small_eigh.cu").read_text()
     assert int(re.search(r"kMaxN = (\d+);", src).group(1)) == small_eigh.MAX_N
     assert int(re.search(r"kMaxSweeps = (\d+);", src).group(1)) == small_eigh.MAX_SWEEPS
+    for c_type, dtype in (("float", torch.float32), ("double", torch.float64)):
+        big = re.search(rf"TauBig<{c_type}> {{ static constexpr {c_type} value = (0x1p\d+)f?;", src).group(1)
+        assert float.fromhex(big) == small_eigh.TAU_BIG[dtype]
+    body = re.search(r"kSchedule\[kMaxN\]\[kMaxSteps\]\[kMaxPairs\]\[2\] = (\{.*?\n\});", src, re.S).group(1)
+    table = ast.literal_eval(re.sub(r"/\*.*?\*/", "", body).replace("{", "[").replace("}", "]"))
+    assert len(table) == small_eigh.MAX_N
+    for n in range(1, small_eigh.MAX_N + 1):
+        assert [[tuple(pq) for pq in step] for step in table[n - 1]] == small_eigh.jacobi_schedule(n), n
