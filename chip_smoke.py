@@ -441,20 +441,17 @@ def build_frames(device, n_frames):
 def run_lio(cfg, frames, gt, device, timer=False):
     """Frame steps from a fresh state. Returns (state, stats); the steady-state
     fps covers frames 5.. (after IMU init and the first updates). With
-    `timer`, each step runs inside `Timer.evaluate`, as the mapping app's."""
+    `timer`, `lio_step`'s spans record (`Timer.enable()`), as the mapping
+    app's `--time_log_file` has them."""
     import torch
 
     from pointcloud_slam_tpu_torch.models import lio
     from pointcloud_slam_tpu_torch.utils.timer import Timer
 
-    def step(s, fr):
-        if timer:
-            return Timer.evaluate(lambda: lio.lio_step(cfg, s, fr), "lio_step")
-        return lio.lio_step(cfg, s, fr)
-
     s = lio.create_state(cfg, device=device)
     outs = []
     syncs0 = lio.lio_step.host_syncs
+    Timer.enable(timer)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -463,11 +460,12 @@ def run_lio(cfg, frames, gt, device, timer=False):
                 if k == 5:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                s, out = step(s, fr)
+                s, out = lio.lio_step(cfg, s, fr)
                 outs.append(out.pos)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
+            Timer.enable(False)
             torch.cuda.set_sync_debug_mode("default")
     seen_syncs = sum("synchroniz" in str(w.message) for w in caught)
     est = torch.stack(outs).cpu().numpy()
@@ -1115,6 +1113,8 @@ LOC_FRAMES = 64            # bench.py config 8's chain length (bench.py:605)
 LOC_NDT_FRAMES = 16        # run_localization's synthetic replay, 16 frames
 LOC_NDT_POINTS = 8192      # run_localization's --n_points default
 REPLAY_MAX_ERR_M = 0.05    # each recorded replay's LIO trajectory against gt_traj.txt
+LIO_SPANS = ["lio_step", "lio_step.downsample", "lio_step.insert", "lio_step.knn", "lio_step.plane_fit",
+             "lio_step.propagate", "lio_step.residuals", "lio_step.undistort", "lio_step.update"]   # the CSV's columns
 RING_BAG_FRAMES = 30       # io.synthetic.write_ring_bag's sweeps (16 x 1,800 rays each) ...
 RING_BAG_MAX_ERR_M = 0.10  # ... and the SLAM app's bound on them at every frame and keyframe
 
@@ -1730,10 +1730,13 @@ def maps_card_vs_cpu(kf_dir, cmp_dir, n):
 def mapping_timer(dev, seq, out_dir, cfg, frames, gt, tuned):
     """Phase 12, item 4: the mapping app with --auto_grid --time_log_file on
     phase 11's dataset (trajectory within REPLAY_MAX_ERR_M of gt_traj.txt at
-    every frame; the CSV read by apps/plot_timings.read_timer_csv); the tuned
-    LIO of phase 3 with every step under Timer.evaluate: its host syncs a
-    frame must stay phase 3's."""
+    every frame; the CSV read by apps/plot_timings.read_timer_csv: a column
+    for each of lio_step's spans, a row a frame); the tuned LIO of phase 3
+    with its spans recording: its host syncs a frame must stay phase 3's, and
+    each row of its CSV sums to the frame's lio_step span."""
     from pointcloud_slam_tpu_torch.utils.timer import Timer
+
+    plot = load_app("apps/plot_timings.py", "smoke_plot_timings")
 
     traj, csv = os.path.join(out_dir, "smoke_replay_autogrid.txt"), os.path.join(out_dir, "smoke_time.csv")
     app = run_apps({"mapping": [os.path.join(ROOT, "apps", "run_mapping_offline_torch.py"), "--data_dir", seq,
@@ -1741,16 +1744,23 @@ def mapping_timer(dev, seq, out_dir, cfg, frames, gt, tuned):
     so = app["mapping"][1]
     rows, gt_rows = np.loadtxt(traj), np.loadtxt(os.path.join(seq, "gt_traj.txt"))
     err = float(np.linalg.norm(rows[:, 1:4] - gt_rows[:, 1:4], axis=1).max())
-    cols = load_app("apps/plot_timings.py", "smoke_plot_timings").read_timer_csv(csv)
+    cols = plot.read_timer_csv(csv)
     check(rows.shape == gt_rows.shape and err < REPLAY_MAX_ERR_M, f"auto_grid replay: {err} m from the ground truth")
-    check(list(cols) == ["lio_step"] and len(cols["lio_step"]) == len(rows), f"timer CSV: {list(cols)}")
+    check(list(cols) == LIO_SPANS and all(len(c) == len(rows) for c in cols.values()), f"timer CSV: {list(cols)}")
     Timer.reset()
     _, timed = run_lio(cfg, frames, gt, dev, timer=True)
+    frame_ms = np.array([f.ms for f in Timer.frames()])
+    csv = os.path.join(out_dir, "smoke_time_lio.csv")
+    Timer.dump_into_file(csv)
+    lio_cols = plot.read_timer_csv(csv)
+    gap = float(np.abs(np.sum(list(lio_cols.values()), axis=0) - frame_ms).max())
+    check(list(lio_cols) == LIO_SPANS and gap < 1e-3, f"timed LIO's CSV: {list(lio_cols)}, rows off by {gap} ms")
     res = dict(auto_grid=next(ln for ln in so.splitlines() if ln.startswith("auto_grid")), replay_err_vs_gt_m=err,
-               csv_rows=len(cols["lio_step"]), csv_mean_ms=float(cols["lio_step"].mean()),
+               csv_rows=len(cols["lio_step"]), csv_frame_ms=float(np.sum(list(cols.values()), axis=0).mean()),
+               csv_stage_ms={n: float(c.mean()) for n, c in cols.items()},
                lio_timer=dict(fps=timed["fps"], host_syncs_per_frame=timed["host_syncs_per_frame"],
                               sync_ops_seen_per_frame=timed["sync_ops_seen_per_frame"],
-                              timer_mean_ms=Timer.mean("lio_step")),
+                              frame_ms=float(frame_ms.mean()), csv_row_gap_ms=gap),
                lio_phase3=dict(host_syncs_per_frame=tuned["host_syncs_per_frame"],
                                sync_ops_seen_per_frame=tuned["sync_ops_seen_per_frame"]))
     Timer.reset()

@@ -8,7 +8,9 @@ device. With `research=True` the re-search decision depends on a device
 value (the previous iteration's convergence); the loop reads it once per
 iteration after the first (`UpdateResult.host_syncs` counts the reads) and
 stops as soon as the update is done — the masked iterations after that
-change nothing.
+change nothing. The iterations run and the searches among them are counted
+in the open frame (`Timer.count`, `lio_step.iterations` and
+`lio_step.searches`).
 
 The update's 23x23 algebra (the two inverses of the information form and
 the covariance it leaves) runs in float64, as the reference's esekfom does
@@ -24,6 +26,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ...geom import s2, so3
+from ...utils.timer import Timer
 from . import state as st
 
 _H_COLS = 12  # measurement Jacobian covers pos/rot/ext_R/ext_t only
@@ -161,6 +164,9 @@ def update_iterated(
             search = flags[1]
         else:
             search = False
+        Timer.count("lio_step.iterations")
+        if search:
+            Timer.count("lio_step.searches")
         h_x, h, mask, cache = obs_fn(x, search, cache)
         m = mask.to(P0.dtype)
         h_x = h_x * m[:, None]

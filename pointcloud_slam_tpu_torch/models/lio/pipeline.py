@@ -12,6 +12,14 @@ IMU sample counts, which the step reads from the device during the
 initialization frames only. `lio_step.host_syncs` counts every
 device -> host read the step makes (initialization frames, and one per
 update iteration with `research_on_converge=True`).
+
+Spans (`utils/timer.Timer`, off unless enabled or profiled): `lio_step` is
+the root; `lio_step.propagate`, `.undistort`, `.downsample`, `.update` (the
+iterated update: its self time is the transport, the float64 23x23 algebra,
+`boxplus` and the convergence read), inside it `.residuals` each iteration
+with `.knn` and `.plane_fit` each search, and `.insert` (gate, compaction,
+`ops.insert`). The update counts `lio_step.iterations` and
+`lio_step.searches`.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from ... import ops
 from ...geom import fit, s2
+from ...utils.timer import Timer
 from . import eskf, imu
 from . import state as st
 
@@ -128,50 +137,54 @@ def _obs_model(cfg: LIOConfig, grid, pts_body, body_norm, mask):
     """Builds the iterated-update observation fn over the downsampled scan."""
 
     def obs(x: st.NavState, do_search: bool, cache):
-        R_wl = x.rot @ x.ext_R
-        t_wl = x.rot @ x.ext_t + x.pos
-        pw = R_wl @ pts_body + t_wl[:, None]
+        # the span's self time: the transform, the Jacobian rows and the residual
+        with Timer.span("lio_step.residuals"):
+            R_wl = x.rot @ x.ext_R
+            t_wl = x.rot @ x.ext_t + x.pos
+            pw = R_wl @ pts_body + t_wl[:, None]
 
-        if do_search or cache is None:
-            nbrs, d2, cnt, _ = ops.knn(cfg.grid, grid, pw, k=cfg.num_match, max_range=cfg.knn_max_dist)
-            nmask = torch.arange(d2.shape[0], device=d2.device)[:, None] < cnt[None, :]
-            coef, ok = fit.plane_fit(nbrs, nmask, cfg.plane_threshold, cfg.min_match)
-            sel = mask & ok & (cnt >= cfg.min_match)
-            cache = (coef, sel, nbrs, d2, cnt)
-        coef, sel = cache[0], cache[1]
+            if do_search or cache is None:
+                with Timer.span("lio_step.knn"):
+                    nbrs, d2, cnt, _ = ops.knn(cfg.grid, grid, pw, k=cfg.num_match, max_range=cfg.knn_max_dist)
+                with Timer.span("lio_step.plane_fit"):
+                    nmask = torch.arange(d2.shape[0], device=d2.device)[:, None] < cnt[None, :]
+                    coef, ok = fit.plane_fit(nbrs, nmask, cfg.plane_threshold, cfg.min_match)
+                    sel = mask & ok & (cnt >= cfg.min_match)
+                cache = (coef, sel, nbrs, d2, cnt)
+            coef, sel = cache[0], cache[1]
 
-        zero = torch.zeros_like(coef[0])
-        nx = torch.where(sel, coef[0], zero)
-        ny = torch.where(sel, coef[1], zero)
-        nz = torch.where(sel, coef[2], zero)
-        pd2 = torch.where(sel, pw[0] * nx + pw[1] * ny + pw[2] * nz + coef[3], zero)
-        valid = sel & (body_norm > 81.0 * pd2 * pd2)  # laser_mapping.cc:631
+            zero = torch.zeros_like(coef[0])
+            nx = torch.where(sel, coef[0], zero)
+            ny = torch.where(sel, coef[1], zero)
+            nz = torch.where(sel, coef[2], zero)
+            pd2 = torch.where(sel, pw[0] * nx + pw[1] * ny + pw[2] * nz + coef[3], zero)
+            valid = sel & (body_norm > 81.0 * pd2 * pd2)  # laser_mapping.cc:631
 
-        # Jacobian rows (laser_mapping.cc:674-698):
-        # p_imu = extR p_body + extT; C = R^T n; A = hat(p_imu) C;
-        # B = hat(p_body) extR^T C (extrinsic estimation only)
-        eR, et, R = x.ext_R, x.ext_t, x.rot
-        p_ix = eR[0, 0] * pts_body[0] + eR[0, 1] * pts_body[1] + eR[0, 2] * pts_body[2] + et[0]
-        p_iy = eR[1, 0] * pts_body[0] + eR[1, 1] * pts_body[1] + eR[1, 2] * pts_body[2] + et[1]
-        p_iz = eR[2, 0] * pts_body[0] + eR[2, 1] * pts_body[1] + eR[2, 2] * pts_body[2] + et[2]
-        cx = R[0, 0] * nx + R[1, 0] * ny + R[2, 0] * nz
-        cy = R[0, 1] * nx + R[1, 1] * ny + R[2, 1] * nz
-        cz = R[0, 2] * nx + R[1, 2] * ny + R[2, 2] * nz
-        ax = p_iy * cz - p_iz * cy
-        ay = p_iz * cx - p_ix * cz
-        az = p_ix * cy - p_iy * cx
-        if cfg.extrinsic_est:
-            # w = extR^T C; B = p_body x w
-            wx = eR[0, 0] * cx + eR[1, 0] * cy + eR[2, 0] * cz
-            wy = eR[0, 1] * cx + eR[1, 1] * cy + eR[2, 1] * cz
-            wz = eR[0, 2] * cx + eR[1, 2] * cy + eR[2, 2] * cz
-            bx = pts_body[1] * wz - pts_body[2] * wy
-            by = pts_body[2] * wx - pts_body[0] * wz
-            bz = pts_body[0] * wy - pts_body[1] * wx
-            h_x = torch.stack([nx, ny, nz, ax, ay, az, bx, by, bz, wx, wy, wz], dim=1)
-        else:
-            h_x = torch.stack([nx, ny, nz, ax, ay, az, zero, zero, zero, zero, zero, zero], dim=1)
-        return h_x, -pd2, valid, cache
+            # Jacobian rows (laser_mapping.cc:674-698):
+            # p_imu = extR p_body + extT; C = R^T n; A = hat(p_imu) C;
+            # B = hat(p_body) extR^T C (extrinsic estimation only)
+            eR, et, R = x.ext_R, x.ext_t, x.rot
+            p_ix = eR[0, 0] * pts_body[0] + eR[0, 1] * pts_body[1] + eR[0, 2] * pts_body[2] + et[0]
+            p_iy = eR[1, 0] * pts_body[0] + eR[1, 1] * pts_body[1] + eR[1, 2] * pts_body[2] + et[1]
+            p_iz = eR[2, 0] * pts_body[0] + eR[2, 1] * pts_body[1] + eR[2, 2] * pts_body[2] + et[2]
+            cx = R[0, 0] * nx + R[1, 0] * ny + R[2, 0] * nz
+            cy = R[0, 1] * nx + R[1, 1] * ny + R[2, 1] * nz
+            cz = R[0, 2] * nx + R[1, 2] * ny + R[2, 2] * nz
+            ax = p_iy * cz - p_iz * cy
+            ay = p_iz * cx - p_ix * cz
+            az = p_ix * cy - p_iy * cx
+            if cfg.extrinsic_est:
+                # w = extR^T C; B = p_body x w
+                wx = eR[0, 0] * cx + eR[1, 0] * cy + eR[2, 0] * cz
+                wy = eR[0, 1] * cx + eR[1, 1] * cy + eR[2, 1] * cz
+                wz = eR[0, 2] * cx + eR[1, 2] * cy + eR[2, 2] * cz
+                bx = pts_body[1] * wz - pts_body[2] * wy
+                by = pts_body[2] * wx - pts_body[0] * wz
+                bz = pts_body[0] * wy - pts_body[1] * wx
+                h_x = torch.stack([nx, ny, nz, ax, ay, az, bx, by, bz, wx, wy, wz], dim=1)
+            else:
+                h_x = torch.stack([nx, ny, nz, ax, ay, az, zero, zero, zero, zero, zero, zero], dim=1)
+            return h_x, -pd2, valid, cache
 
     return obs
 
@@ -198,101 +211,110 @@ def _map_insert_mask(cfg: LIOConfig, pw, mask, nbrs, d2, cnt_ok):
 
 def lio_step(cfg: LIOConfig, s: LIOState, frame: LIOFrame):
     """Process one sensor frame. Returns (new_state, LIOOutput)."""
-    dtype, dev = s.P.dtype, s.P.device
-    Q = eskf.process_noise_cov(dtype, cfg.gyr_cov, cfg.acc_cov, cfg.b_gyr_cov, cfg.b_acc_cov, device=dev)
+    with Timer.span("lio_step"):
+        dtype, dev = s.P.dtype, s.P.device
+        Q = eskf.process_noise_cov(dtype, cfg.gyr_cov, cfg.acc_cov, cfg.b_gyr_cov, cfg.b_acc_cov, device=dev)
 
-    # ---- IMU initialization accumulation (imu_processing.hpp IMUInit) ----
-    x, acc_scale = s.x, s.acc_scale
-    acc_sum, gyro_sum, init_count = s.acc_sum, s.gyro_sum, s.init_count
-    now_init = False
-    if not s.initialized:
-        m = frame.imu_mask.to(dtype)[:, None]
-        acc_sum = acc_sum + torch.sum(frame.imu_acc * m, dim=0)
-        gyro_sum = gyro_sum + torch.sum(frame.imu_gyro * m, dim=0)
-        init_count = init_count + int(frame.imu_mask.sum())
-        lio_step.host_syncs += 1
-        now_init = init_count >= cfg.init_imu_frames * 10
-        if now_init:
-            n = float(max(init_count, 1))
-            grav_i, bg_i, scale_i = imu.init_from_measurements(acc_sum / n, gyro_sum / n, cfg.gravity)
-            x = x._replace(grav=grav_i, bg=bg_i)
-            acc_scale = scale_i
-    initialized = s.initialized or now_init
+        # ---- IMU initialization accumulation (imu_processing.hpp IMUInit) ----
+        x, acc_scale = s.x, s.acc_scale
+        acc_sum, gyro_sum, init_count = s.acc_sum, s.gyro_sum, s.init_count
+        now_init = False
+        if not s.initialized:
+            m = frame.imu_mask.to(dtype)[:, None]
+            acc_sum = acc_sum + torch.sum(frame.imu_acc * m, dim=0)
+            gyro_sum = gyro_sum + torch.sum(frame.imu_gyro * m, dim=0)
+            init_count = init_count + int(frame.imu_mask.sum())
+            lio_step.host_syncs += 1
+            now_init = init_count >= cfg.init_imu_frames * 10
+            if now_init:
+                n = float(max(init_count, 1))
+                grav_i, bg_i, scale_i = imu.init_from_measurements(acc_sum / n, gyro_sum / n, cfg.gravity)
+                x = x._replace(grav=grav_i, bg=bg_i)
+                acc_scale = scale_i
+        initialized = s.initialized or now_init
 
-    if s.initialized:
-        # forward propagation + pose table
-        x_end, P_end, table = imu.propagate(
-            x, s.P, Q, frame.imu_acc, frame.imu_gyro, frame.imu_dt, frame.imu_offs,
-            frame.imu_mask, acc_scale, s.prev_acc_w, s.prev_gyro,
-        )
-        # backward per-point motion compensation (lidar frame @ scan end)
-        pts_u = imu.undistort(frame.pts, frame.t_offs, frame.pt_mask, table, x_end)
-        # scan downsample + compaction to the static survivor budget
-        if cfg.scan_budget:
-            pts_d, mask_d = ops.voxel_downsample_compact(pts_u, frame.pt_mask, cfg.scan_leaf, cfg.scan_budget)
+        if s.initialized:
+            # forward propagation + pose table
+            with Timer.span("lio_step.propagate"):
+                x_end, P_end, table = imu.propagate(
+                    x, s.P, Q, frame.imu_acc, frame.imu_gyro, frame.imu_dt, frame.imu_offs,
+                    frame.imu_mask, acc_scale, s.prev_acc_w, s.prev_gyro,
+                )
+            # backward per-point motion compensation (lidar frame @ scan end)
+            with Timer.span("lio_step.undistort"):
+                pts_u = imu.undistort(frame.pts, frame.t_offs, frame.pt_mask, table, x_end)
+            # scan downsample + compaction to the static survivor budget
+            with Timer.span("lio_step.downsample"):
+                if cfg.scan_budget:
+                    pts_d, mask_d = ops.voxel_downsample_compact(pts_u, frame.pt_mask, cfg.scan_leaf,
+                                                                 cfg.scan_budget)
+                else:
+                    pts_d, mask_d = ops.voxel_downsample(pts_u, frame.pt_mask, cfg.scan_leaf)
+                body_norm = torch.sqrt(torch.sum(pts_d * pts_d, dim=0))
+            obs = _obs_model(cfg, s.grid, pts_d, body_norm, mask_d)
+            with Timer.span("lio_step.update"):
+                upd = eskf.update_iterated(
+                    x_end, P_end, obs, cfg.laser_point_cov, cfg.max_iterations, cfg.epsi,
+                    research=cfg.research_on_converge,
+                )
+            lio_step.host_syncs += upd.host_syncs
+            # map insert with downsample gating against the last search's neighbors
+            with Timer.span("lio_step.insert"):
+                R_wl = upd.x.rot @ upd.x.ext_R
+                t_wl = upd.x.rot @ upd.x.ext_t + upd.x.pos
+                pw = R_wl @ pts_d + t_wl[:, None]
+                _, _, nbrs, d2, cnt = upd.cache
+                ins_mask = _map_insert_mask(cfg, pw, mask_d, nbrs, d2, cnt)
+                if cfg.phc_order:
+                    # the curve-ordered centroids are packed at the front: slicing
+                    # replaces ops.compact
+                    pw, ins_mask = ops.phc_merge(pw, ins_mask, cfg.grid.resolution, cfg.phc_order,
+                                                 curve_output=True)
+                    if cfg.insert_budget:
+                        pw, ins_mask = pw[:, : cfg.insert_budget], ins_mask[: cfg.insert_budget]
+                elif cfg.insert_budget:
+                    pw, ins_mask = ops.compact(pw, ins_mask, cfg.insert_budget)
+                grid = ops.insert(cfg.grid, s.grid, pw, ins_mask)
+            n_eff = torch.sum(mask_d.to(torch.int32))
+            # pose-table seed for the next frame: last valid sample's entries
+            last = torch.clamp(torch.sum(frame.imu_mask.to(torch.int64)), min=1).reshape(1)
+            prev_acc_w = table.acc.index_select(0, last)[0]
+            prev_gyro = table.gyro.index_select(0, last)[0]
+            x_new, P_new, conv = upd.x, upd.P, upd.converged
         else:
-            pts_d, mask_d = ops.voxel_downsample(pts_u, frame.pt_mask, cfg.scan_leaf)
-        body_norm = torch.sqrt(torch.sum(pts_d * pts_d, dim=0))
-        obs = _obs_model(cfg, s.grid, pts_d, body_norm, mask_d)
-        upd = eskf.update_iterated(
-            x_end, P_end, obs, cfg.laser_point_cov, cfg.max_iterations, cfg.epsi,
-            research=cfg.research_on_converge,
-        )
-        lio_step.host_syncs += upd.host_syncs
-        # map insert with downsample gating against the last search's neighbors
-        R_wl = upd.x.rot @ upd.x.ext_R
-        t_wl = upd.x.rot @ upd.x.ext_t + upd.x.pos
-        pw = R_wl @ pts_d + t_wl[:, None]
-        _, _, nbrs, d2, cnt = upd.cache
-        ins_mask = _map_insert_mask(cfg, pw, mask_d, nbrs, d2, cnt)
-        if cfg.phc_order:
-            # the curve-ordered centroids are packed at the front: slicing
-            # replaces ops.compact
-            pw, ins_mask = ops.phc_merge(pw, ins_mask, cfg.grid.resolution, cfg.phc_order, curve_output=True)
-            if cfg.insert_budget:
-                pw, ins_mask = pw[:, : cfg.insert_budget], ins_mask[: cfg.insert_budget]
-        elif cfg.insert_budget:
-            pw, ins_mask = ops.compact(pw, ins_mask, cfg.insert_budget)
-        grid = ops.insert(cfg.grid, s.grid, pw, ins_mask)
-        n_eff = torch.sum(mask_d.to(torch.int32))
-        # pose-table seed for the next frame: last valid sample's entries
-        last = torch.clamp(torch.sum(frame.imu_mask.to(torch.int64)), min=1).reshape(1)
-        prev_acc_w = table.acc.index_select(0, last)[0]
-        prev_gyro = table.gyro.index_select(0, last)[0]
-        x_new, P_new, conv = upd.x, upd.P, upd.converged
-    else:
-        # first scan (or still initializing): seed the map at the current pose
-        R_wl = x.rot @ x.ext_R
-        t_wl = x.rot @ x.ext_t + x.pos
-        pw = R_wl @ frame.pts + t_wl[:, None]
-        grid = ops.insert(cfg.grid, s.grid, pw, frame.pt_mask)
-        x_new, P_new = x, s.P
-        n_eff = torch.zeros((), dtype=torch.int32, device=dev)
-        conv = torch.zeros((), dtype=torch.bool, device=dev)
-        prev_acc_w, prev_gyro = s.prev_acc_w, s.prev_gyro
+            # first scan (or still initializing): seed the map at the current pose
+            with Timer.span("lio_step.insert"):
+                R_wl = x.rot @ x.ext_R
+                t_wl = x.rot @ x.ext_t + x.pos
+                pw = R_wl @ frame.pts + t_wl[:, None]
+                grid = ops.insert(cfg.grid, s.grid, pw, frame.pt_mask)
+            x_new, P_new = x, s.P
+            n_eff = torch.zeros((), dtype=torch.int32, device=dev)
+            conv = torch.zeros((), dtype=torch.bool, device=dev)
+            prev_acc_w, prev_gyro = s.prev_acc_w, s.prev_gyro
 
-    s_new = LIOState(
-        x=x_new,
-        P=P_new,
-        grid=grid,
-        initialized=initialized,
-        first_scan=False,
-        init_count=init_count,
-        acc_sum=acc_sum,
-        gyro_sum=gyro_sum,
-        acc_scale=acc_scale,
-        prev_acc_w=prev_acc_w,
-        prev_gyro=prev_gyro,
-    )
-    out = LIOOutput(
-        pos=x_new.pos,
-        rot=x_new.rot,
-        vel=x_new.vel,
-        num_effective=n_eff,
-        converged=conv,
-        P_diag=torch.diagonal(P_new),
-    )
-    return s_new, out
+        s_new = LIOState(
+            x=x_new,
+            P=P_new,
+            grid=grid,
+            initialized=initialized,
+            first_scan=False,
+            init_count=init_count,
+            acc_sum=acc_sum,
+            gyro_sum=gyro_sum,
+            acc_scale=acc_scale,
+            prev_acc_w=prev_acc_w,
+            prev_gyro=prev_gyro,
+        )
+        out = LIOOutput(
+            pos=x_new.pos,
+            rot=x_new.rot,
+            vel=x_new.vel,
+            num_effective=n_eff,
+            converged=conv,
+            P_diag=torch.diagonal(P_new),
+        )
+        return s_new, out
 
 
 lio_step.host_syncs = 0

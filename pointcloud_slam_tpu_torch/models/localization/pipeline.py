@@ -14,6 +14,8 @@ Reference: `src/jueying_slam/src/localization.cpp` / `new_localization.cpp`
 Every field of a result stays on the device: `localize_loam`,
 `localize_ndt` and `relocalize` read nothing back to the host (scan-to-map's
 and NDT's eigendecompositions are kernel K6, `ops.small_eigh`, on the card).
+`localize_ndt` is a root span (`utils/timer.Timer`) around `ndt.align`'s
+spans and `localize_ndt.gate`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from ... import ops, register
 from ...geom import se3
 from ...register import solver
+from ...utils.timer import Timer
 from ..liosam import scan2map as s2m
 
 
@@ -96,11 +99,13 @@ def localize_ndt(
     mask: torch.Tensor,
     init_pose: se3.Pose,
 ) -> LocalizationResult:
-    res = register.ndt.align(ndt_grid_cfg, ndt_map, pts, mask, init_pose, cfg=cfg.ndt)
-    pw = res.pose.apply(pts)
-    fitness, frac, lost = _gate(cfg, point_grid_cfg, point_map, pw, mask)
-    return LocalizationResult(res.pose, fitness, frac, lost, res.max_eigen < cfg.degeneracy_eigen_thresh,
-                              res.max_eigen)
+    with Timer.span("localize_ndt"):
+        res = register.ndt.align(ndt_grid_cfg, ndt_map, pts, mask, init_pose, cfg=cfg.ndt)
+        with Timer.span("localize_ndt.gate"):
+            pw = res.pose.apply(pts)
+            fitness, frac, lost = _gate(cfg, point_grid_cfg, point_map, pw, mask)
+        return LocalizationResult(res.pose, fitness, frac, lost, res.max_eigen < cfg.degeneracy_eigen_thresh,
+                                  res.max_eigen)
 
 
 def relocalize(result: LocalizationResult, fallback_pose: se3.Pose) -> se3.Pose:

@@ -16,6 +16,13 @@ schedule is static (warm-up rounds of one iteration, then rounds of
 read: the final eigenvalues are `ops.small_eigh.eigvalsh` (kernel K6 on the
 card; `torch.linalg.eigvalsh` would check its info on the host).
 
+`align`'s spans (`utils/timer.Timer`): `ndt.align`, inside it `ndt.search`
+each correspondence search, `ndt.linearize` and `ndt.solve` each
+Gauss-Newton iteration (and one last linearization), `ndt.eig` the final
+eigenvalues; counts `ndt.iterations` (the updates run) and, from the
+result's `iterations` without a read, `ndt.iterations_used` (those before
+`done`).
+
 The unbaked correspondence search is one `gg.probe` of every (point,
 stencil offset) pair and a gather of the matched voxels' statistics: the
 JAX package's rolled probe-window tables (`_correspond`) suit TPU gather
@@ -37,6 +44,7 @@ from ..geom import se3
 from ..ops import gaussian_grid as gg
 from ..ops import small_eigh
 from ..ops.voxel_grid import _stencil_tensor
+from ..utils.timer import Timer
 from . import solver
 from .vgicp import _check_bake_coverage, _point_jacobian, _src_cov_world, _sym3, _sym_inv3, _weighted_terms
 
@@ -231,27 +239,40 @@ def align(
     baked = isinstance(target, gg.BakedGaussianMap)
 
     def search(pose):
-        pw = pose.apply(source)
-        if baked:
-            return _correspond_baked(cfg, grid_cfg, target, pw, source_mask)
-        return _correspond(cfg, grid_cfg, target, pw, source_mask)
+        with Timer.span("ndt.search"):
+            pw = pose.apply(source)
+            if baked:
+                return _correspond_baked(cfg, grid_cfg, target, pw, source_mask)
+            return _correspond(cfg, grid_cfg, target, pw, source_mask)
 
-    pose = init_pose
-    done, iters = solver._start(init_pose)
-    warmup = min(cfg.warmup_searches, scfg.max_iterations)
-    rest = scfg.max_iterations - warmup
-    n_rounds = -(-rest // cfg.search_every) if rest > 0 else 0
-    cache = None
-    for chunk in [1] * warmup + [cfg.search_every] * n_rounds:
-        cache = search(pose)
-        done = done | (iters >= scfg.max_iterations)
-        for _ in range(chunk):
-            H, b, _ = _linearize_cached(d1, d2, *cache, pose.apply(source), source)
-            pose, done, iters, _ = solver._gn_update(H, b, pose, done, iters, scfg,
-                                                     lam=1e-6 * H.diagonal().abs().amax())
-    if cache is None:  # max_iterations = 0: no correspondences, zero terms
-        S, N = _stencil_tensor(cfg.nearby, source.device).shape[1], source.shape[1]
-        cache = (source.new_zeros((3, S, N)), source.new_zeros((6, S, N)),
-                 torch.zeros((S, N), dtype=torch.bool, device=source.device))
-    H, b, err = _linearize_cached(d1, d2, *cache, pose.apply(source), source)
-    return NDTResult(pose, done, iters, -err, H, small_eigh.eigvalsh(H)[-1])
+    def linearize(cache, pose):
+        with Timer.span("ndt.linearize"):
+            return _linearize_cached(d1, d2, *cache, pose.apply(source), source)
+
+    with Timer.span("ndt.align"):
+        pose = init_pose
+        done, iters = solver._start(init_pose)
+        warmup = min(cfg.warmup_searches, scfg.max_iterations)
+        rest = scfg.max_iterations - warmup
+        n_rounds = -(-rest // cfg.search_every) if rest > 0 else 0
+        chunks = [1] * warmup + [cfg.search_every] * n_rounds
+        cache = None
+        for chunk in chunks:
+            cache = search(pose)
+            done = done | (iters >= scfg.max_iterations)
+            for _ in range(chunk):
+                H, b, _ = linearize(cache, pose)
+                with Timer.span("ndt.solve"):
+                    pose, done, iters, _ = solver._gn_update(H, b, pose, done, iters, scfg,
+                                                             lam=1e-6 * H.diagonal().abs().amax())
+        # Gauss-Newton updates run, and (read only when the frames are) those before `done`
+        Timer.count("ndt.iterations", sum(chunks))
+        Timer.count_lazy("ndt.iterations_used", iters)
+        if cache is None:  # max_iterations = 0: no correspondences, zero terms
+            S, N = _stencil_tensor(cfg.nearby, source.device).shape[1], source.shape[1]
+            cache = (source.new_zeros((3, S, N)), source.new_zeros((6, S, N)),
+                     torch.zeros((S, N), dtype=torch.bool, device=source.device))
+        H, b, err = linearize(cache, pose)
+        with Timer.span("ndt.eig"):
+            max_eigen = small_eigh.eigvalsh(H)[-1]
+        return NDTResult(pose, done, iters, -err, H, max_eigen)

@@ -1,5 +1,5 @@
-"""Utilities: timing registry, leveled logging, config loading, checkpoint /
-artifact IO (pure Python/numpy, CUDA events for the timer)."""
+"""Utilities: timing registry and spans, leveled logging, config loading,
+checkpoint / artifact IO (pure Python/numpy; the timer on the host clock)."""
 
 from . import checkpoint, config, log, timer
 from .timer import Timer

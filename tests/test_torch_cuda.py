@@ -810,8 +810,8 @@ def test_insert_cloud_3d_on_card_matches_cpu(cuda, capacity, n_points):
 
 
 def test_timer_adds_no_sync(cuda):
-    """Timer.evaluate on the card records CUDA events and waits for nothing;
-    mean resolves them after one synchronize."""
+    """Timer.evaluate on the card times its span on the host clock and
+    waits for nothing; mean reads the records."""
     from pointcloud_slam_tpu_torch.utils.timer import Timer
 
     a = torch.randn(2048, 2048, device=cuda)

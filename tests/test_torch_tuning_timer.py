@@ -126,9 +126,14 @@ class TestLogging:
             assert int(z["_frame"]) == 3 and z["pts"].shape == (3, 4)
 
 
+LIO_SPANS = ["lio_step", "lio_step.downsample", "lio_step.insert", "lio_step.knn", "lio_step.plane_fit",
+             "lio_step.propagate", "lio_step.residuals", "lio_step.undistort", "lio_step.update"]
+
+
 def test_mapping_app_auto_grid_and_time_log(tmp_path, capsys):
     """--auto_grid sizes the grid from the first frame, --time_log_file
-    writes one lio_step time a frame that plot_timings reads."""
+    writes a row a frame of lio_step's span self times that plot_timings
+    reads, each row summing to the frame's lio_step span."""
     mapping = _load("apps/run_mapping_offline_torch.py", "rmo_torch_timer")
     csv = str(tmp_path / "time.csv")
     mapping.main(["--synthetic", "6", "--n_points", "2000", "--device", "cpu", "--auto_grid",
@@ -136,6 +141,10 @@ def test_mapping_app_auto_grid_and_time_log(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "auto_grid: resolution" in out and "frames: 6" in out
     cols = _load("apps/plot_timings.py", "plot_timings_app").read_timer_csv(csv)
-    assert list(cols) == ["lio_step"] and len(cols["lio_step"]) == 6 and (cols["lio_step"] > 0).all()
+    assert list(cols) == LIO_SPANS and all(len(c) == 6 for c in cols.values()) and (cols["lio_step"] > 0).all()
+    frames = Timer.frames()
+    assert [f.root for f in frames] == ["lio_step"] * 6
+    np.testing.assert_allclose(np.sum(list(cols.values()), axis=0), [f.ms for f in frames], rtol=0, atol=1e-3)
+    Timer.reset()
     traj = np.loadtxt(tmp_path / "traj.txt")
     assert traj.shape == (6, 8) and np.isfinite(traj).all()
