@@ -16,12 +16,19 @@ schedule is static (warm-up rounds of one iteration, then rounds of
 read: the final eigenvalues are `ops.small_eigh.eigvalsh` (kernel K6 on the
 card; `torch.linalg.eigvalsh` would check its info on the host).
 
+On the card, `align` replays its schedule as one CUDA graph a call from
+the second call with the same maps, shapes and configs on (`_graph_key`):
+the same kernels in the same order, one launch from the host instead of
+~5,400. The graphs are held in a small least-recently-used cache
+(`GRAPH_CACHE`); a key seen once runs eagerly.
+
 `align`'s spans (`utils/timer.Timer`): `ndt.align`, inside it `ndt.search`
 each correspondence search, `ndt.linearize` and `ndt.solve` each
-Gauss-Newton iteration (and one last linearization), `ndt.eig` the final
-eigenvalues; counts `ndt.iterations` (the updates run) and, from the
-result's `iterations` without a read, `ndt.iterations_used` (those before
-`done`).
+Gauss-Newton iteration (these three only where the schedule runs eagerly),
+`ndt.linearize` the last linearization and `ndt.eig` the final eigenvalues
+(always eager); counts `ndt.iterations` (the updates run),
+`ndt.graph_captures` and `ndt.graph_replays`, and, from the result's
+`iterations` without a read, `ndt.iterations_used` (those before `done`).
 
 The unbaked correspondence search is one `gg.probe` of every (point,
 stencil offset) pair and a gather of the matched voxels' statistics: the
@@ -35,6 +42,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
@@ -220,6 +229,137 @@ def align_d2d(
     return NDTResult(pose, done, iters, -err, H, small_eigh.eigvalsh(H)[-1])
 
 
+def _search(cfg: NDTConfig, grid_cfg, target, source, source_mask, pose):
+    with Timer.span("ndt.search"):
+        pw = pose.apply(source)
+        if isinstance(target, gg.BakedGaussianMap):
+            return _correspond_baked(cfg, grid_cfg, target, pw, source_mask)
+        return _correspond(cfg, grid_cfg, target, pw, source_mask)
+
+
+def _linearize(d1, d2, cache, pose, source):
+    with Timer.span("ndt.linearize"):
+        return _linearize_cached(d1, d2, *cache, pose.apply(source), source)
+
+
+def _chunks(cfg: NDTConfig):
+    """The updates between searches: `warmup_searches` rounds of one, then
+    rounds of `search_every` up to the solver's `max_iterations`."""
+    warmup = min(cfg.warmup_searches, cfg.solver.max_iterations)
+    rest = cfg.solver.max_iterations - warmup
+    return [1] * warmup + [cfg.search_every] * (-(-rest // cfg.search_every) if rest > 0 else 0)
+
+
+def _schedule(cfg: NDTConfig, grid_cfg, target, source, source_mask, init_pose):
+    """`align`'s Gauss-Newton schedule: every search and masked update of
+    `_chunks`, a fixed sequence of launches with no host read. Returns
+    (pose, done, iters, the last search's correspondences or None)."""
+    d1, d2 = cfg.gauss_coeffs()
+    scfg = cfg.solver
+    pose = init_pose
+    done, iters = solver._start(init_pose)
+    cache = None
+    for chunk in _chunks(cfg):
+        cache = _search(cfg, grid_cfg, target, source, source_mask, pose)
+        done = done | (iters >= scfg.max_iterations)
+        for _ in range(chunk):
+            H, b, _ = _linearize(d1, d2, cache, pose, source)
+            with Timer.span("ndt.solve"):
+                pose, done, iters, _ = solver._gn_update(H, b, pose, done, iters, scfg,
+                                                         lam=1e-6 * H.diagonal().abs().amax())
+    return pose, done, iters, cache
+
+
+# CUDA graphs of `_schedule`, one a key, the least recently used dropped past this many
+GRAPH_CACHE = 4
+_graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+
+
+def _engages(source: torch.Tensor) -> bool:
+    return source.is_cuda
+
+
+def _graph_key(cfg: NDTConfig, grid_cfg, target, source, source_mask, init_pose) -> tuple:
+    """What a captured schedule depends on: the device, the inputs' layouts
+    and which were given, the configs, and the address and layout of every
+    target tensor (the graph reads the map by address, so an update of the
+    map in place is seen and a new map is a new key)."""
+    def layout(t):
+        return None if t is None else (tuple(t.shape), t.stride(), t.dtype)
+
+    return (source.device, torch.cuda.current_device() if source.is_cuda else None, cfg, grid_cfg, type(target),
+            layout(source), layout(source_mask), init_pose is None or (layout(init_pose.R), layout(init_pose.t)),
+            tuple((t.data_ptr(), layout(t)) for t in target if torch.is_tensor(t)))
+
+
+def _sighting(key: tuple, targets) -> "Optional[_Graph]":
+    """The key's entry from its second sighting on (the entry holds the
+    target tensors once it has a graph); None on a first sighting, which is
+    recorded with weak references: a map freed since is seen anew."""
+    entry = _graphs.get(key)
+    if entry is None or not entry.alive():
+        entry = None
+        _graphs[key] = _Graph(targets)
+    _graphs.move_to_end(key)
+    while len(_graphs) > GRAPH_CACHE:
+        _graphs.popitem(last=False)
+    return entry
+
+
+def _capture(fn):
+    """fn() captured in a CUDA graph on a side stream, after one eager run
+    there (per-stream library state, such as cuBLAS's workspace, stays out of
+    the graph's private memory pool). Returns (graph, fn's outputs, which
+    each replay overwrites). A refused operation raises."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    return graph, out
+
+
+class _Graph:
+    """A key's schedule as a graph: static inputs, captured on the second
+    sighting, replayed on every later one (one caller at a time)."""
+
+    def __init__(self, targets):
+        self.targets = [weakref.ref(t) for t in targets]
+        self.graph = None
+
+    def alive(self) -> bool:
+        return self.graph is not None or all(r() is not None for r in self.targets)
+
+    def run(self, cfg: NDTConfig, grid_cfg, target, source, source_mask, init_pose):
+        """Copy the inputs in (or capture on them), replay: the static outputs."""
+        if self.graph is None:
+            self.source = source.clone()
+            self.mask = (torch.ones(source.shape[1], dtype=torch.bool, device=source.device) if source_mask is None
+                         else source_mask.clone())
+            init = se3.identity(source.dtype, device=source.device) if init_pose is None else init_pose
+            self.pose = se3.Pose(init.R.clone(), init.t.clone())
+            self.graph, self.out = _capture(lambda: _schedule(cfg, grid_cfg, target, self.source, self.mask,
+                                                              self.pose))
+            self.targets = [t for t in target if torch.is_tensor(t)]
+            Timer.count("ndt.graph_captures", 1)
+        else:
+            self.source.copy_(source)
+            if source_mask is not None:
+                self.mask.copy_(source_mask)
+            if init_pose is not None:
+                self.pose.R.copy_(init_pose.R)
+                self.pose.t.copy_(init_pose.t)
+        self.graph.replay()
+        Timer.count("ndt.graph_replays", 1)
+        return self.out
+
+
 def align(
     grid_cfg: ops.GridConfig,
     target,
@@ -229,50 +369,35 @@ def align(
     cfg: NDTConfig = NDTConfig(),
 ) -> NDTResult:
     """Align source (3, N) to the NDT target map (a GaussianVoxelMap with its
-    grid config, or a BakedGaussianMap with its baked config)."""
-    if source_mask is None:
-        source_mask = torch.ones(source.shape[1], dtype=torch.bool, device=source.device)
-    if init_pose is None:
-        init_pose = se3.identity(source.dtype, device=source.device)
-    d1, d2 = cfg.gauss_coeffs()
-    scfg = cfg.solver
-    baked = isinstance(target, gg.BakedGaussianMap)
+    grid config, or a BakedGaussianMap with its baked config).
 
-    def search(pose):
-        with Timer.span("ndt.search"):
-            pw = pose.apply(source)
-            if baked:
-                return _correspond_baked(cfg, grid_cfg, target, pw, source_mask)
-            return _correspond(cfg, grid_cfg, target, pw, source_mask)
-
-    def linearize(cache, pose):
-        with Timer.span("ndt.linearize"):
-            return _linearize_cached(d1, d2, *cache, pose.apply(source), source)
-
+    On CUDA tensors the schedule (`_schedule`) runs eagerly the first time a
+    key (`_graph_key`) is seen, is captured as a CUDA graph the second time
+    and replayed from then on; the last linearization and K6 stay eager. A
+    replay returns copies of the pose, `done` and `iters`, so no result
+    aliases the next replay's outputs."""
+    entry = _sighting(_graph_key(cfg, grid_cfg, target, source, source_mask, init_pose),
+                      [t for t in target if torch.is_tensor(t)]) if _engages(source) else None
     with Timer.span("ndt.align"):
-        pose = init_pose
-        done, iters = solver._start(init_pose)
-        warmup = min(cfg.warmup_searches, scfg.max_iterations)
-        rest = scfg.max_iterations - warmup
-        n_rounds = -(-rest // cfg.search_every) if rest > 0 else 0
-        chunks = [1] * warmup + [cfg.search_every] * n_rounds
-        cache = None
-        for chunk in chunks:
-            cache = search(pose)
-            done = done | (iters >= scfg.max_iterations)
-            for _ in range(chunk):
-                H, b, _ = linearize(cache, pose)
-                with Timer.span("ndt.solve"):
-                    pose, done, iters, _ = solver._gn_update(H, b, pose, done, iters, scfg,
-                                                             lam=1e-6 * H.diagonal().abs().amax())
+        if entry is None:
+            if source_mask is None:
+                source_mask = torch.ones(source.shape[1], dtype=torch.bool, device=source.device)
+            if init_pose is None:
+                init_pose = se3.identity(source.dtype, device=source.device)
+            pose, done, iters, cache = _schedule(cfg, grid_cfg, target, source, source_mask, init_pose)
+        else:
+            pose, done, iters, cache = entry.run(cfg, grid_cfg, target, source, source_mask, init_pose)
+            source = entry.source
         # Gauss-Newton updates run, and (read only when the frames are) those before `done`
-        Timer.count("ndt.iterations", sum(chunks))
-        Timer.count_lazy("ndt.iterations_used", iters)
+        Timer.count("ndt.iterations", sum(_chunks(cfg)))
         if cache is None:  # max_iterations = 0: no correspondences, zero terms
             S, N = _stencil_tensor(cfg.nearby, source.device).shape[1], source.shape[1]
             cache = (source.new_zeros((3, S, N)), source.new_zeros((6, S, N)),
                      torch.zeros((S, N), dtype=torch.bool, device=source.device))
-        H, b, err = linearize(cache, pose)
+        H, b, err = _linearize(*cfg.gauss_coeffs(), cache, pose, source)
+        if entry is not None:
+            pose, done, iters = se3.Pose(pose.R.clone(), pose.t.clone()), done.clone(), iters.clone()
+        Timer.count_lazy("ndt.iterations_used", iters)
         with Timer.span("ndt.eig"):
             max_eigen = small_eigh.eigvalsh(H)[-1]
         return NDTResult(pose, done, iters, -err, H, max_eigen)

@@ -683,6 +683,131 @@ def test_localization_on_card_matches_cpu(cuda):
     assert syncs == 0, syncs
 
 
+@pytest.fixture
+def ndt_frames(cuda):
+    """A 6,000-point room as a baked NDT target and a point map on the card,
+    and 20 frames of 2,000 points: each a scan from its own pose, and an
+    initial pose a few centimetres off it."""
+    from pointcloud_slam_tpu_torch import ops, register
+    from pointcloud_slam_tpu_torch.geom import se3
+    from pointcloud_slam_tpu_torch.io import synthetic
+    from pointcloud_slam_tpu_torch.models.localization import pipeline as loc
+
+    world = synthetic.make_room_cloud(6000, seed=0)
+    w = torch.from_numpy(np.ascontiguousarray(world.T)).to(cuda)
+    cfg = loc.LocalizationConfig(method="ndt")
+    ngc, nmap = register.ndt.build_target(cfg.ndt, w, baked=True)
+    pgc, pmap = register.build_target_map(w, grid_cfg=ops.GridConfig(capacity=1 << 14, pts_per_voxel=8,
+                                                                       resolution=1.0, nearby=7))
+    frames = []
+    for k in range(20):
+        R, t = synthetic.random_pose(seed=100 + k, rot_scale=0.03, trans_scale=0.2)
+        sel = np.random.default_rng(k).choice(len(world), 2000, replace=False)
+        scan = torch.from_numpy(np.ascontiguousarray(((world[sel] - t) @ R).astype(np.float32).T)).to(cuda)
+        mask = torch.from_numpy(np.arange(2000) % 11 != k % 11).to(cuda)
+        R0, t0 = synthetic.random_pose(seed=200 + k, rot_scale=0.01, trans_scale=0.03)
+        init = se3.Pose(torch.from_numpy(R.T @ R0).to(cuda), torch.from_numpy((t + t0).astype(np.float32)).to(cuda))
+        frames.append((scan, mask, init))
+    register.ndt._graphs.clear()
+    yield cfg, (ngc, nmap, pgc, pmap), frames
+    register.ndt._graphs.clear()
+
+
+def _localize_frames(cfg, maps, frames):
+    from pointcloud_slam_tpu_torch.models.localization import pipeline as loc
+
+    ngc, nmap, pgc, pmap = maps
+    return [loc.localize_ndt(cfg, ngc, nmap, pgc, pmap, scan, mask, init) for scan, mask, init in frames]
+
+
+def test_ndt_graph_replay_equals_eager_on_card(cuda, ndt_frames, monkeypatch):
+    """20 localization frames of one key: the first eager, the second captured
+    and replayed, the rest replayed. Each frame's pose, iterations, converged
+    flag, H, max eigenvalue, fitness and loss flag equal the eager frame's
+    bit for bit, read after every frame has run (no result aliases a later
+    replay's buffers); a replay syncs nothing; spans: search and solve on the
+    eager frame only, the capture once, a replay a frame after it."""
+    from pointcloud_slam_tpu_torch.register import ndt
+    from pointcloud_slam_tpu_torch.utils.timer import Timer
+
+    cfg, maps, frames = ndt_frames
+    monkeypatch.setattr(ndt, "_engages", lambda source: False)
+    eager = _localize_frames(cfg, maps, frames)
+    assert not ndt._graphs
+    monkeypatch.undo()
+    Timer.reset()
+    Timer.enable()
+    try:
+        got = _localize_frames(cfg, maps, frames)
+        _count_syncs(lambda: _localize_frames(cfg, maps, frames[:1]))      # the debugger's own first warning
+        _, syncs = _count_syncs(lambda: _localize_frames(cfg, maps, frames[1:3]))
+        fr = Timer.frames()[:20]
+    finally:
+        Timer.enable(False)
+        Timer.reset()
+    assert syncs == 0, syncs
+    for k, (a, b) in enumerate(zip(eager, got)):
+        res_a = (a.pose.R, a.pose.t, a.fitness, a.matched_frac, a.lost, a.degenerate, a.max_eigen)
+        res_b = (b.pose.R, b.pose.t, b.fitness, b.matched_frac, b.lost, b.degenerate, b.max_eigen)
+        for x, y in zip(res_a, res_b):
+            assert torch.equal(x, y), k
+    counts = [f.counts for f in fr]
+    assert [c.get("ndt.graph_captures", 0) for c in counts] == [0, 1] + [0] * 18
+    assert [c.get("ndt.graph_replays", 0) for c in counts] == [0] + [1] * 19
+    spans = [{s.name for s in f.spans} for f in fr]
+    assert {"ndt.search", "ndt.solve"} <= spans[0]
+    assert all(not {"ndt.search", "ndt.solve"} & s and {"ndt.linearize", "ndt.eig"} <= s for s in spans[2:])
+    assert len(ndt._graphs) == 1
+
+
+def test_ndt_align_results_equal_eager_and_graph_on_card(cuda, ndt_frames, monkeypatch):
+    """`ndt.align` alone: iterations, converged, H and score of a replay equal
+    the eager align's, frame by frame."""
+    from pointcloud_slam_tpu_torch.register import ndt
+
+    cfg, (ngc, nmap, _, _), frames = ndt_frames
+    run = lambda: [ndt.align(ngc, nmap, *f, cfg=cfg.ndt) for f in frames[:6]]
+    monkeypatch.setattr(ndt, "_engages", lambda source: False)
+    eager = run()
+    monkeypatch.undo()
+    got = run()
+    assert ndt._graphs[next(iter(ndt._graphs))].graph is not None
+    for k, (a, b) in enumerate(zip(eager, got)):
+        for x, y in zip(torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)):
+            assert torch.equal(x, y), k
+
+
+def test_ndt_graph_keys_on_card(cuda, ndt_frames):
+    """A map seen once stays eager; a new map tensor captures anew on its
+    second call and leaves the first map's graph in place; the cache keeps
+    at most GRAPH_CACHE graphs, the least recently used dropped."""
+    from pointcloud_slam_tpu_torch.register import ndt
+    from pointcloud_slam_tpu_torch.utils.timer import Timer
+
+    cfg, (ngc, nmap, _, _), frames = ndt_frames
+    scan, mask, init = frames[0]
+    maps = [nmap] + [type(nmap)(*(t.clone() for t in nmap)) for _ in range(ndt.GRAPH_CACHE + 1)]
+    Timer.reset()
+    Timer.enable()
+    try:
+        ndt.align(ngc, maps[1], scan, mask, init, cfg=cfg.ndt)                       # seen once
+        for m in maps[:1] + maps[2:]:
+            for _ in range(2):
+                ndt.align(ngc, m, scan, mask, init, cfg=cfg.ndt)
+        ndt.align(ngc, maps[1], scan, mask, init, cfg=cfg.ndt)                       # dropped: seen anew
+        fr = Timer.frames()
+    finally:
+        Timer.enable(False)
+        Timer.reset()
+    captures = [f.counts.get("ndt.graph_captures", 0) for f in fr]
+    assert captures == [0] + [0, 1] * (ndt.GRAPH_CACHE + 1) + [0]
+    assert len(ndt._graphs) == ndt.GRAPH_CACHE
+    graphs = [e for e in ndt._graphs.values() if e.graph is not None]
+    assert len(graphs) == ndt.GRAPH_CACHE - 1
+    held = {t.data_ptr() for e in graphs for t in e.targets}
+    assert held == {t.data_ptr() for m in maps[-(ndt.GRAPH_CACHE - 1):] for t in m if torch.is_tensor(t)}
+
+
 def test_lio_update_on_card_matches_cpu(cuda):
     """The LIO's iterated update (its 23x23 algebra in float64) on the same
     prior on both devices, one spanning eight decades as P does after a few

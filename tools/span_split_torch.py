@@ -8,9 +8,12 @@ harness's own spans around the call and the pose read) over the traced
 frames, a frame: the host self time in ms (the Timer's records), the CUDA
 launches and the device ms (each launch, and its device record, charged to
 the innermost span around the launch), and the launches whose device record
-the profiler did not keep (`lost`, in all). Also the counts a frame, and how
-far a frame's summed self times lie from its root span on the profiler's
-clock (`root_gap_pct`, the largest over the frames).
+the profiler did not keep (`lost`, in all). Also the counts a frame (for
+NDT always `ndt.graph_replays` and `ndt.graph_captures`), how far a frame's
+summed self times lie from its root span on the profiler's clock
+(`root_gap_pct`, the largest over the frames), and the NDT graphs the whole
+run left in `register.ndt`'s cache (`ndt_graphs`: keys, and those captured;
+a capture happens once, in set-up, outside the traced frames).
 
     python tools/span_split_torch.py --workload loc_ndt_rs16.hall_laps --seed 3000000001 --seconds 10
 """
@@ -77,6 +80,8 @@ def split(prof, frames, call_name):
         for name, ms in f.self_ms.items():
             host[name] = host.get(name, 0.0) + ms / n
     counts = {}
+    if call_name == "localize_ndt":
+        counts = {"ndt.graph_replays": 0.0, "ndt.graph_captures": 0.0}
     for f in frames:
         for name, c in f.counts.items():
             counts[name] = counts.get(name, 0.0) + c / n
@@ -111,8 +116,11 @@ def main(argv=None):
                       "--trace", "1"])
     if rc or "prof" not in kept:
         return rc or 1
+    from pointcloud_slam_tpu_torch.register import ndt
+
     out = dict(cell=args.workload, seed=args.seed,
-               **split(kept["prof"], Timer.frames(), core.resolve(args.workload).pipeline.CALL_NAME))
+               **split(kept["prof"], Timer.frames(), core.resolve(args.workload).pipeline.CALL_NAME),
+               ndt_graphs={"keys": len(ndt._graphs), "captured": sum(e.graph is not None for e in ndt._graphs.values())})
     print(json.dumps(out), flush=True)
     return 0
 
